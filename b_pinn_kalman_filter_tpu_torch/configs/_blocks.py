@@ -1,0 +1,30 @@
+"""Shared config blocks (copy of the JAX package's ``configs/_blocks.py``;
+only the block of the ported path so far)."""
+
+
+def ddpmpp_model(model):
+  """DDPM++ model block (as in reference vp/cifar10_ddpmpp_continuous.py)."""
+  model.name = 'ddpm'
+  model.scale_by_sigma = False
+  model.ema_rate = 0.9999
+  model.normalization = 'GroupNorm'
+  model.nonlinearity = 'swish'
+  model.nf = 128
+  model.ch_mult = (1, 2, 2, 2)
+  model.num_res_blocks = 4
+  model.attn_resolutions = (16,)
+  model.resamp_with_conv = True
+  model.conditional = True
+  model.fir = False
+  model.fir_kernel = [1, 3, 3, 1]
+  model.skip_rescale = True
+  model.resblock_type = 'biggan'
+  model.progressive = 'none'
+  model.progressive_input = 'none'
+  model.progressive_combine = 'sum'
+  model.attention_type = 'ddpm'
+  model.init_scale = 0.
+  model.embedding_type = 'positional'
+  model.fourier_scale = 16
+  model.conv_size = 3
+  return model
