@@ -1,4 +1,5 @@
-"""Layers of the DDPM score network in PyTorch.
+"""Layers of the DDPM score network in PyTorch (and the spatial embedding
+of the flow nets).
 
 Counterpart of the JAX package's ``models/layers.py``.  Layout is NHWC and
 every parameter keeps its flax name and layout (conv ``kernel`` HWIO,
@@ -220,6 +221,20 @@ def get_timestep_embedding(timesteps: Tensor, embedding_dim: int,
     emb = F.pad(emb, (0, 1))
   assert emb.shape == (timesteps.shape[0], embedding_dim)
   return emb
+
+
+def get_spatial_embedding(x: Tensor, y: Tensor, omega: float,
+                          s: float = 1.0) -> Tensor:
+  """Radial sinusoid field of the coordinate images x, y (B, H, W, 1).
+
+  The maxima are over the whole tensor, batch included, as in the JAX
+  package; the sqrt is guarded by 1e-12 where its gradient is singular.
+  """
+  eps = 1e-12
+  e1 = torch.sin(omega * torch.sqrt(x ** 2 + y ** 2 + eps))
+  e2 = torch.sin(omega * torch.sqrt((x.max() - x) ** 2
+                                    + (y.max() - y) ** 2 + eps))
+  return (e1 + e2) / s
 
 
 class NIN(nn.Module):

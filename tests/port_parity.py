@@ -83,3 +83,54 @@ def jax_tiny_model(config, seed=0):
   apply = jax.jit(lambda p, x, labels: model.apply(
       {'params': p}, x, labels, train=False))
   return apply, randomized_params(shapes['params'], seed)
+
+
+# The PINN/UKF size of tests/test_ukf.py:_kf_config: 16x16 fields, two
+# pyramid levels, 4x4 patches (64 filters of dimension 16).
+TINY_PINN = {
+    ('data', 'image_size'): 16,
+    ('kf', 'patch_size'): 4,
+    ('model', 'feature_nums'): (4, 8),
+    ('training', 'batch_size'): 1,
+}
+
+
+def tiny_pinn_configs():
+  """``pinn/pinn_pde`` of each package, cut to ``TINY_PINN``."""
+  from b_pinn_kalman_filter_tpu import configs as jax_configs
+  from b_pinn_kalman_filter_tpu_torch import configs as torch_configs
+  out = []
+  for mod in (jax_configs, torch_configs):
+    config = mod.get_config('pinn/pinn_pde')
+    for (block, key), value in TINY_PINN.items():
+      setattr(getattr(config, block), key, value)
+    out.append(config)
+  return tuple(out)
+
+
+def jax_pinn(config):
+  from b_pinn_kalman_filter_tpu.pinn.pinn import PINN
+  return PINN(config)
+
+
+def pinn_param_shapes(config):
+  """The flax PINN's params tree of shape structs (init only traced)."""
+  import jax
+  import jax.numpy as jnp
+  size = config.data.image_size
+  f = jnp.zeros((1, size, size, config.data.num_channels))
+  return jax.eval_shape(lambda: jax_pinn(config).init(
+      jax.random.PRNGKey(0), f, f, f, f, jnp.zeros((1,)),
+      train=False))['params']
+
+
+def pinn_inputs(batch=1, size=16, seed=0):
+  """(f1, f2, x, y, t) as numpy float32: two random frames, the unit
+  coordinate grids and times 1, 2, ..."""
+  rng = np.random.default_rng(seed)
+  f1, f2 = rng.random((2, batch, size, size, 1)).astype(np.float32)
+  xs, ys = np.meshgrid(np.linspace(0, 1, size), np.linspace(0, 1, size))
+  x = np.broadcast_to(xs[None, :, :, None], f1.shape).astype(np.float32)
+  y = np.broadcast_to(ys[None, :, :, None], f1.shape).astype(np.float32)
+  t = np.arange(1, batch + 1, dtype=np.float32)
+  return f1, f2, x, y, t

@@ -26,10 +26,13 @@ if not torch.cuda.is_available():
   assert chip_smoke.main() == 2     # no card: no result, non-zero exit
   from b_pinn_kalman_filter_tpu_torch.device import get_device
   from b_pinn_kalman_filter_tpu_torch.train import run_lib
+  from b_pinn_kalman_filter_tpu_torch.kalman import ukf_lib
   from b_pinn_kalman_filter_tpu_torch import configs
   for call in (get_device,
                lambda: run_lib.sample(configs.get_config(
-                   'vp/cifar10_ddpmpp_continuous'), batch_size=1)):
+                   'vp/cifar10_ddpmpp_continuous'), batch_size=1),
+               lambda: ukf_lib.run(configs.get_config('pinn/pinn_pde'),
+                                   'workdir-never-made', n_steps=1)):
     try:
       call()
     except RuntimeError as e:
@@ -43,7 +46,7 @@ print('ok')
 def test_port_imports_no_jax_and_defaults_to_the_card():
   """In a fresh interpreter: import every port module and chip_smoke.py,
   then check sys.modules, and without a card that the default device,
-  run_lib.sample and chip_smoke.main() refuse."""
+  run_lib.sample, ukf_lib.run and chip_smoke.main() refuse."""
   env = dict(os.environ, PYTHONPATH=ROOT)
   out = subprocess.run([sys.executable, '-c', _IMPORT_ALL], cwd=ROOT,
                        env=env, capture_output=True, text=True, timeout=240)
@@ -62,9 +65,16 @@ def _keys(tree, prefix=''):
 
 
 def test_config_has_the_jax_keys_and_values():
+  _check_config_keys('vp/cifar10_ddpmpp_continuous')
+
+
+def test_pinn_config_has_the_jax_keys_and_values():
+  _check_config_keys('pinn/pinn_pde')
+
+
+def _check_config_keys(name):
   from b_pinn_kalman_filter_tpu import configs as jax_configs
   from b_pinn_kalman_filter_tpu_torch import configs as torch_configs
-  name = 'vp/cifar10_ddpmpp_continuous'
   want = _keys(jax_configs.get_config(name))
   got = _keys(torch_configs.get_config(name))
   # Dropped on purpose: on CUDA the kernels always run.
