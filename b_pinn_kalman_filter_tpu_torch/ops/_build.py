@@ -24,7 +24,8 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, 'csrc')
 BUILD_DIR = os.path.join(_PKG, '_build')
-SOURCES = ('conv3x3', 'groupnorm', 'correlation', 'ns_step')
+SOURCES = ('conv3x3', 'conv3x3_wgmma', 'groupnorm', 'groupnorm_pergroup',
+           'correlation', 'ns_step')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
@@ -41,7 +42,7 @@ def _nvcc() -> str:
   raise RuntimeError('nvcc not found: the CUDA kernels need the CUDA toolkit')
 
 
-def _library_path(name: str) -> str:
+def library_path(name: str) -> str:
   with open(os.path.join(CSRC, f'{name}.cu'), 'rb') as f:
     digest = hashlib.sha256(f.read() + ' '.join(NVCC_FLAGS).encode())
   return os.path.join(BUILD_DIR, f'{name}-{digest.hexdigest()[:16]}.so')
@@ -76,7 +77,7 @@ def build_all(names: Iterable[str] = SOURCES) -> Dict[str, str]:
   started: List = []
   try:
     for name in names:
-      out = _library_path(name)
+      out = library_path(name)
       if not os.path.exists(out):
         started.append((name, out) + _start(name))
     return {name: _finish(name, proc, tmp, out)
@@ -99,7 +100,7 @@ def load(name: str, signatures: Dict[str, tuple]) -> ctypes.CDLL:
   lib = _LOADED.get(name)
   if lib is None:
     build_all([name])
-    lib = ctypes.CDLL(_library_path(name))
+    lib = ctypes.CDLL(library_path(name))
     for fn_name, argtypes in signatures.items():
       fn = getattr(lib, fn_name)
       fn.argtypes = list(argtypes)

@@ -2,12 +2,20 @@
 
 Counterpart of the JAX package's ``ops/winograd.py`` ``conv3x3_fast`` and
 the TPU kernel behind it, ``ops/winograd_pallas.py``
-``winograd_conv3x3_fused``.  The card's kernel is ``csrc/conv3x3.cu`` (a
-direct implicit GEMM; Winograd is an exact rewrite of the same
-convolution).
+``winograd_conv3x3_fused``.  Winograd is an exact rewrite of the same
+convolution; the card computes it as an implicit GEMM with one of two
+kernels, picked by :func:`kernel_for` from the dtype and shape alone:
+
+- ``'wgmma'`` (``csrc/conv3x3_wgmma.cu``): bf16 with Cin and Cout multiples
+  of 8 (TMA needs 16-byte strides).  Tensor cores fed by TMA, tiles and
+  split-K from :func:`wgmma_plan`.  Every bf16 site of the flagship U-Net.
+- ``'direct'`` (``csrc/conv3x3.cu``): everything else, f32 above all (TF32
+  would miss the f32 limit of 1e-4); f32 FMA on the CUDA cores.
 
 :func:`conv3x3` takes the plain version, :func:`conv3x3_plain`, only for a
-tensor on the CPU; for a CUDA tensor it launches the kernel or raises.
+tensor on the CPU; for a CUDA tensor it launches a kernel or raises.
+``conv3x3.launches`` counts every launch, ``conv3x3.launches_by_kernel``
+each kernel's.
 Both compute in f32 from inputs cast to ``x.dtype`` (weights too), add the
 f32 bias, and return ``x.dtype`` — the JAX ``_direct_conv`` semantics.
 Forward only: the backward comes with the training slice.
@@ -16,7 +24,9 @@ Forward only: the backward comes with the training slice.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+import math
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -28,6 +38,18 @@ _SIGNATURES = {
     'conv3x3_nhwc': (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 6
                     + (ctypes.c_void_p,),
 }
+_WGMMA_SIGNATURES = {
+    'conv3x3_wgmma_nhwc': (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 10
+                          + (ctypes.c_void_p,),
+}
+# The wgmma kernel's fixed sizes (csrc/conv3x3_wgmma.cu): 64 output pixels
+# and 64 input channels a K step per block, at most 8 blocks in a split-K
+# cluster.  The plan aims at about one wave of the H100's 132 SMs.
+WGMMA_BM = 64
+WGMMA_BK = 64
+MAX_SPLIT = 8
+TARGET_BLOCKS = 128
+MIN_STEPS_PER_SPLIT = 4   # a split keeps the 4-stage ring full
 
 
 def applicable(x_shape, kernel_shape, stride: int = 1, dilation: int = 1,
@@ -43,6 +65,52 @@ def applicable(x_shape, kernel_shape, stride: int = 1, dilation: int = 1,
           and tuple(kernel_shape[:2]) == (3, 3)
           and x_shape[-1] >= min_channels
           and kernel_shape[-1] >= min_channels)
+
+
+def kernel_for(dtype: torch.dtype, cin: int, cout: int) -> str:
+  """The card's kernel for a conv, by dtype and shape only: ``'wgmma'``
+  for bf16 with Cin and Cout multiples of 8, else ``'direct'``."""
+  if dtype == torch.bfloat16 and cin % 8 == 0 and cout % 8 == 0:
+    return 'wgmma'
+  return 'direct'
+
+
+def _pow2_ceil(n: int) -> int:
+  return 1 << max(0, (n - 1).bit_length())
+
+
+def wgmma_box(B: int, H: int, W: int) -> Tuple[int, int, int]:
+  """The pixel box (bb, hb, wb) of one 64-pixel tile: whole rows of the
+  image where they fit, bb * hb * wb = 64, each a power of two.  Rows past
+  the image (odd H or W) are zeros on load and masked on store."""
+  wb = min(_pow2_ceil(W), WGMMA_BM)
+  hb = min(_pow2_ceil(H), WGMMA_BM // wb)
+  return WGMMA_BM // (wb * hb), hb, wb
+
+
+@functools.lru_cache(maxsize=None)
+def wgmma_plan(B: int, H: int, W: int, cin: int, cout: int) -> Dict:
+  """Tiles and split-K of the wgmma kernel.
+
+  ``bn`` is 128 output channels where that still gives about one wave of
+  blocks, else 64.  ``split`` doubles (up to 8, one cluster) while the
+  blocks are fewer than ``TARGET_BLOCKS`` and every split keeps at least
+  ``MIN_STEPS_PER_SPLIT`` of the 9 * ceil(Cin/64) K steps.
+  """
+  bb, hb, wb = wgmma_box(B, H, W)
+  tiles_m = math.ceil(B / bb) * math.ceil(H / hb) * math.ceil(W / wb)
+  bn = 128 if cout > 64 else 64
+  if tiles_m * math.ceil(cout / bn) < TARGET_BLOCKS:
+    bn = 64
+  tiles = tiles_m * math.ceil(cout / bn)
+  k_steps = 9 * math.ceil(cin / WGMMA_BK)
+  split = 1
+  while (split < MAX_SPLIT and tiles * split < TARGET_BLOCKS
+         and k_steps >= MIN_STEPS_PER_SPLIT * split * 2):
+    split *= 2
+  return dict(box=(bb, hb, wb), bn=bn, tiles_m=tiles_m,
+              tiles_n=math.ceil(cout / bn), split=split, k_steps=k_steps,
+              blocks=tiles * split)
 
 
 def conv_nhwc_plain(x: torch.Tensor, kernel: torch.Tensor,
@@ -92,19 +160,45 @@ def conv3x3(x: torch.Tensor, kernel: torch.Tensor,
     if t is not None and t.device != x.device:
       raise ValueError('conv3x3: x, kernel and bias must share a device')
 
+  return _launch(kernel_for(x.dtype, Cin, Cout), x, kernel, bias)
+
+
+def _conv3x3_direct(x: torch.Tensor, kernel: torch.Tensor,
+                    bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+  """The direct kernel on any CUDA input, whatever :func:`kernel_for` would
+  pick: the yardstick ``chip_smoke.py`` times beside the wgmma kernel.  The
+  main path never calls it."""
+  return _launch('direct', x, kernel, bias)
+
+
+def _launch(which: str, x: torch.Tensor, kernel: torch.Tensor,
+            bias: Optional[torch.Tensor]) -> torch.Tensor:
+  B, H, W, Cin = x.shape
+  Cout = kernel.shape[3]
   x = x.contiguous()
   w = kernel.to(x.dtype).contiguous()
   b = (torch.zeros(Cout, dtype=torch.float32, device=x.device)
        if bias is None else bias.float().contiguous())
   y = torch.empty((B, H, W, Cout), dtype=x.dtype, device=x.device)
-  lib = _build.load('conv3x3', _SIGNATURES)
   stream = torch.cuda.current_stream(x.device).cuda_stream
-  err = lib.conv3x3_nhwc(x.data_ptr(), w.data_ptr(), b.data_ptr(),
-                         y.data_ptr(), B, H, W, Cin, Cout,
-                         _DTYPE_CODES[x.dtype], stream)
-  _build.check_launch(err, 'conv3x3')
+  if which == 'wgmma':
+    # TMA reads from 16-byte aligned addresses; a view may start elsewhere.
+    x, w = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (x, w))
+    plan = wgmma_plan(B, H, W, Cin, Cout)
+    lib = _build.load('conv3x3_wgmma', _WGMMA_SIGNATURES)
+    err = lib.conv3x3_wgmma_nhwc(x.data_ptr(), w.data_ptr(), b.data_ptr(),
+                                 y.data_ptr(), B, H, W, Cin, Cout, plan['bn'],
+                                 *plan['box'], plan['split'], stream)
+  else:
+    lib = _build.load('conv3x3', _SIGNATURES)
+    err = lib.conv3x3_nhwc(x.data_ptr(), w.data_ptr(), b.data_ptr(),
+                           y.data_ptr(), B, H, W, Cin, Cout,
+                           _DTYPE_CODES[x.dtype], stream)
+  _build.check_launch(err, f'conv3x3 ({which})')
   conv3x3.launches += 1
+  conv3x3.launches_by_kernel[which] += 1
   return y
 
 
 conv3x3.launches = 0
+conv3x3.launches_by_kernel = {'wgmma': 0, 'direct': 0}

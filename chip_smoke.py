@@ -8,26 +8,37 @@ Run from the root of a checkout; it needs one CUDA card, ``nvcc`` and
 ``nvidia-smi``, and imports nothing of JAX or the JAX package.  Phases:
 
 1. the card's name and power limit, as ``nvidia-smi`` gives them;
-2. build the four CUDA kernels from ``b_pinn_kalman_filter_tpu_torch/csrc``
-   (one ``nvcc`` per source, all at once) and print the build time;
+2. build the CUDA kernels from ``b_pinn_kalman_filter_tpu_torch/csrc``
+   (one ``nvcc`` per source, all at once), print the build time, each
+   kernel's ``-Xptxas -v`` lines and, where ``cuobjdump`` exists, the
+   ``HGMMA`` (tensor-core) instructions in the wgmma conv's SASS;
 3. find the K1/K2 sites' shapes from one full-width forward of the flagship
    U-Net (``vp/cifar10_ddpmpp_continuous``: nf 128, ch_mult (1,2,2,2), 4
    res blocks, 32x32, batch 8), then hold each kernel against its plain
    version on the card at every distinct shape, in f32 (TF32 off for convs
    and matmuls) and in bf16, and time kernel, plain version and the one
    PyTorch library call of the same function (cuDNN ``F.conv2d``;
-   ``F.group_norm`` + ``F.silu``) with CUDA events;
+   ``F.group_norm`` + ``F.silu``): their device time from
+   ``torch.profiler``, and the kernel's time per call back to back with
+   CUDA events (the host's time where it exceeds the kernel's).  In bf16
+   the first port's kernels are timed beside the main path's (K1's
+   direct kernel, K2's one block per group), through private entries the
+   main path never calls; K1 is also summed per level of the U-Net;
 4. hold K3 (cost volume) and K4 (NS step) against their plain versions in
    f32 at every shape the ``ukf`` path launches them with (the five FlowNet
    levels of ``pinn/pinn_pde`` at batch 1; the 129 sigma points and the
-   rollout's one image at 64x64) and at an odd shape, and time both (no
-   single PyTorch call computes either function);
+   rollout's one image at 64x64) and at an odd shape, and time both as
+   in phase 3 (no single PyTorch call computes either function);
 5. a full-width flagship forward with every parameter randomised: the
-   kernel path against the plain path, in f32 and bf16;
+   kernel path against the plain path, in f32 and bf16, each timed on the
+   host's clock and in device time;
 6. serve ``--requests`` sample requests through ``run_lib.sample`` (batch 8,
    N = ``--steps``, default the config's 1000, bf16) with the launch counts
    set to 0 before and read after; the counts must be the per-forward site
-   counts times N times the requests, and the samples finite;
+   counts times N times the requests, every K1 launch the wgmma kernel's,
+   and the samples finite; then profile one steady sampler step
+   (``torch.profiler``): host and device-busy seconds, idle share, top
+   device ops;
 7. run the ``ukf`` entry point ``ukf_lib.run`` at the full width of
    ``pinn/pinn_pde`` (64x64, FlowNet levels 16..128, 8x8 patches: 256
    filters of dimension 64, 8 B-PINN draws a cycle) for ``--cycles``
@@ -54,6 +65,7 @@ import argparse
 import collections
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -63,8 +75,12 @@ import traceback
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
 
 from b_pinn_kalman_filter_tpu_torch import configs
+from b_pinn_kalman_filter_tpu_torch.core import sampling
+from b_pinn_kalman_filter_tpu_torch.core import sde as sde_lib
 from b_pinn_kalman_filter_tpu_torch.data.ns_rollout import ns_rollout
 from b_pinn_kalman_filter_tpu_torch.kalman import ukf_lib
 from b_pinn_kalman_filter_tpu_torch.models import layers, registry
@@ -96,7 +112,9 @@ def log(*args):
 
 
 def time_ms(fn, iters=20, warmup=3):
-  """Mean ms of ``fn()`` over ``iters`` back-to-back calls (CUDA events)."""
+  """Mean ms of ``fn()`` over ``iters`` back-to-back calls (CUDA events).
+  Where the host takes longer to issue a call than the device to run it,
+  this is the host's time per call."""
   for _ in range(warmup):
     fn()
   torch.cuda.synchronize()
@@ -110,12 +128,59 @@ def time_ms(fn, iters=20, warmup=3):
   return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters=20, warmup=3):
+  """Mean device ms of ``fn()``: the summed own times of the device ops
+  (kernels, copies) that ``iters`` calls launch, from ``torch.profiler``,
+  over ``iters``.  The host's time between launches is not in it."""
+  for _ in range(warmup):
+    fn()
+  # A trace now and then comes back without its device events; take
+  # another (and fail, not report 0, if none has them).
+  for _ in range(5):
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+      for _ in range(iters):
+        fn()
+      torch.cuda.synchronize()
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA)
+    if busy_us > 0:
+      return busy_us * 1e-3 / iters
+  raise RuntimeError('torch.profiler recorded no device time in 5 traces')
+
+
+def timings(kernel, plain, library=None, prev=None):
+  """Device ms of the kernel, its plain version, the library call and the
+  first port's kernel (taken in turns: kernel, first port, kernel), and
+  ``call_ms``, the kernel's time per call back to back (CUDA events)."""
+  row = dict(ms=device_ms(kernel), call_ms=time_ms(kernel),
+             plain_ms=device_ms(plain),
+             library_ms=None if library is None else device_ms(library))
+  if prev is not None:
+    row['prev_ms'] = device_ms(prev)
+    row['ms'] = (row['ms'] + device_ms(kernel)) / 2
+  return row
+
+
 def bound(flops, nbytes, dtype):
   """Least time in ms and what sets it: bytes over the memory rate or
   operations over the peak rate of ``dtype``."""
   t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
   t_ops = flops / PEAK_FLOPS[dtype] * 1e3
   return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
+
+
+def hgmma_count():
+  """``HGMMA`` instructions in the built wgmma conv's SASS, or None where
+  the toolkit has no ``cuobjdump``."""
+  tool = shutil.which('cuobjdump') or '/usr/local/cuda/bin/cuobjdump'
+  if not os.path.exists(tool):
+    return None
+  sass = subprocess.run([tool, '-sass', _build.library_path('conv3x3_wgmma')],
+                        capture_output=True, text=True, check=True,
+                        timeout=120).stdout
+  return sum('HGMMA' in line for line in sass.splitlines())
 
 
 def rel_err(got, want):
@@ -192,8 +257,10 @@ def check_conv(shape, dtype, seed):
   H, W, cin, cout = shape
   g = torch.Generator(device='cuda').manual_seed(seed)
   x = torch.randn((BATCH, H, W, cin), generator=g, device='cuda').to(dtype)
-  w = torch.randn((3, 3, cin, cout), generator=g, device='cuda') / (
-      9 * cin) ** 0.5
+  # Weights already in the working dtype, so that the wrapper's cast is a
+  # no-op and the device time is the kernel's alone.
+  w = (torch.randn((3, 3, cin, cout), generator=g, device='cuda') / (
+      9 * cin) ** 0.5).to(dtype)
   b = 0.1 * torch.randn((cout,), generator=g, device='cuda')
   with torch.inference_mode():
     got = k1.conv3x3(x, w, b)
@@ -203,13 +270,19 @@ def check_conv(shape, dtype, seed):
     # The library call on the same function: cuDNN on the NHWC data
     # (channels-last NCHW view) in the working dtype.
     x_lib = x.permute(0, 3, 1, 2)
-    w_lib = w.to(dtype).permute(3, 2, 0, 1).contiguous(
+    w_lib = w.permute(3, 2, 0, 1).contiguous(
         memory_format=torch.channels_last)
     b_lib = b.to(dtype)
-    row = dict(
-        ms=time_ms(lambda: k1.conv3x3(x, w, b)),
-        plain_ms=time_ms(lambda: k1.conv3x3_plain(x, w, b)),
-        library_ms=time_ms(lambda: F.conv2d(x_lib, w_lib, b_lib, padding=1)))
+    which = k1.kernel_for(dtype, cin, cout)
+    # The first port's direct kernel on the same inputs, where the main
+    # path now takes the wgmma kernel.
+    prev = None if which == 'direct' else (
+        lambda: k1._conv3x3_direct(x, w, b))
+    row = dict(kernel=which, **timings(
+        lambda: k1.conv3x3(x, w, b), lambda: k1.conv3x3_plain(x, w, b),
+        lambda: F.conv2d(x_lib, w_lib, b_lib, padding=1), prev))
+    if prev is not None:
+      _, row['prev_rel_err'] = rel_err(prev(), want)
   itemsize = x.element_size()
   flops = 2 * 9 * BATCH * H * W * cin * cout
   nbytes = (x.numel() + w.numel() + BATCH * H * W * cout) * itemsize + 4 * cout
@@ -232,12 +305,13 @@ def check_norm(shape, dtype, seed):
     abs_err, rel = rel_err(got, want)
     x_lib = x.permute(0, 3, 1, 2)
     s_lib, b_lib = scale.to(dtype), bias.to(dtype)
-    row = dict(
-        ms=time_ms(lambda: k2.groupnorm_act(x, scale, bias, G, 'silu')),
-        plain_ms=time_ms(
-            lambda: k2.groupnorm_act_plain(x, scale, bias, G, 'silu')),
-        library_ms=time_ms(lambda: F.silu(
-            F.group_norm(x_lib, G, s_lib, b_lib, 1e-6))))
+    # The first port's kernel (one block per image and group).
+    prev = lambda: k2._groupnorm_act_pergroup(x, scale, bias, G, 'silu')
+    row = timings(
+        lambda: k2.groupnorm_act(x, scale, bias, G, 'silu'),
+        lambda: k2.groupnorm_act_plain(x, scale, bias, G, 'silu'),
+        lambda: F.silu(F.group_norm(x_lib, G, s_lib, b_lib, 1e-6)), prev)
+    _, row['prev_rel_err'] = rel_err(prev(), want)
   n = x.numel()
   nbytes = 2 * n * x.element_size() + 8 * C
   row['bound_ms'], row['bound_by'] = bound(10 * n, nbytes, dtype)
@@ -255,23 +329,45 @@ def kernel_phase(name, sites, check, seed):
       row.update(shape=list(shape), dtype=str(dtype).split('.')[-1],
                  per_forward=count, tol=TOL[dtype])
       rows.append(row)
+      prev = (f' first port {row["prev_ms"]:.4f} (rel '
+              f'{row["prev_rel_err"]:.1e})' if 'prev_ms' in row else '')
       log(f'  {name} {shape} {row["dtype"]:8s} x{count:<2d} '
-          f'abs {row["max_abs_err"]:.3e} rel {row["rel_err"]:.3e} | '
-          f'kernel {row["ms"]:.4f} ms plain {row["plain_ms"]:.4f} '
-          f'library {row["library_ms"]:.4f} bound {row["bound_ms"]:.4f} '
-          f'({row["bound_by"]})')
-      if not row['rel_err'] <= TOL[dtype]:
-        failures.append(f'{name} {shape} {row["dtype"]}: rel error '
-                        f'{row["rel_err"]:.3e} > {TOL[dtype]}')
+          f'{row.get("kernel", "")} abs {row["max_abs_err"]:.3e} rel '
+          f'{row["rel_err"]:.3e} | kernel {row["ms"]:.4f} ms (call '
+          f'{row["call_ms"]:.4f}){prev} plain '
+          f'{row["plain_ms"]:.4f} library {row["library_ms"]:.4f} bound '
+          f'{row["bound_ms"]:.4f} ({row["bound_by"]})')
+      for key in ('rel_err', 'prev_rel_err'):
+        if key in row and not row[key] <= TOL[dtype]:
+          failures.append(f'{name} {shape} {row["dtype"]}: {key} '
+                          f'{row[key]:.3e} > {TOL[dtype]}')
   bf16 = [r for r in rows if r['dtype'] == 'bfloat16']
   total = {k: sum(r[k] * r['per_forward'] for r in bf16)
            for k in ('ms', 'plain_ms', 'library_ms', 'bound_ms')}
+  prev_total = sum(r['prev_ms'] * r['per_forward'] for r in bf16)
+  call_total = sum(r['call_ms'] * r['per_forward'] for r in bf16)
+  log(f'  {name} per forward (bf16, device ms): kernel {total["ms"]:.4f}, '
+      f'first port {prev_total:.4f}, plain {total["plain_ms"]:.4f}, library '
+      f'{total["library_ms"]:.4f}, bound {total["bound_ms"]:.4f}; kernel '
+      f'calls back to back {call_total:.4f}')
+  levels = {}
+  for r in bf16:
+    level = levels.setdefault(r['shape'][0], dict(
+        sites=0, ms=0.0, prev_ms=0.0, library_ms=0.0, bound_ms=0.0))
+    level['sites'] += r['per_forward']
+    for k in ('ms', 'prev_ms', 'library_ms', 'bound_ms'):
+      level[k] += r[k] * r['per_forward']
+  for h, level in sorted(levels.items(), reverse=True):
+    log(f'    {h}x{h}: {level["sites"]} sites, kernel {level["ms"]:.4f} ms, '
+        f'first port {level["prev_ms"]:.4f}, library '
+        f'{level["library_ms"]:.4f}, bound {level["bound_ms"]:.4f}')
   by = collections.Counter()
   for r in bf16:
     by[r['bound_by']] += r['bound_ms'] * r['per_forward']
   total['bound_by'] = by.most_common(1)[0][0]
   total['max_abs_err'] = max(r['max_abs_err'] for r in bf16)
-  return rows, total, failures
+  return rows, total, dict(prev_ms=prev_total, call_ms=call_total,
+                           levels=levels), failures
 
 
 def check_corr(shape, seed):
@@ -285,9 +381,8 @@ def check_corr(shape, seed):
     want = k3.correlation_plain(f1, f2)
     torch.cuda.synchronize()
     abs_err, rel = rel_err(got, want)
-    row = dict(ms=time_ms(lambda: k3.correlation(f1, f2)),
-               plain_ms=time_ms(lambda: k3.correlation_plain(f1, f2)),
-               library_ms=None)
+    row = timings(lambda: k3.correlation(f1, f2),
+                  lambda: k3.correlation_plain(f1, f2))
   pixels = B * H * W
   row['bound_ms'], row['bound_by'] = bound(
       2 * 49 * C * pixels, 2 * pixels * C * 4 + 49 * pixels * 4,
@@ -313,9 +408,8 @@ def check_ns(shape, seed):
     want = k4.ns_step(*args)
     torch.cuda.synchronize()
     errs = [rel_err(a, b) for a, b in zip(got, want)]
-    row = dict(ms=time_ms(lambda: k4.ns_step_fused(*args)),
-               plain_ms=time_ms(lambda: k4.ns_step(*args)),
-               library_ms=None)
+    row = timings(lambda: k4.ns_step_fused(*args),
+                  lambda: k4.ns_step(*args))
   pixels = B * H * W
   row['bound_ms'], row['bound_by'] = bound(NS_STEP_OPS * pixels,
                                            8 * pixels * 4, torch.float32)
@@ -347,7 +441,8 @@ def flow_kernel_phase(seed):
                  per_cycle=per_cycle, tol=TOL[torch.float32])
       mine.append(row)
       log(f'  {name} {shape} x{per_cycle:<2d} abs {row["max_abs_err"]:.3e} '
-          f'rel {row["rel_err"]:.3e} | kernel {row["ms"]:.4f} ms plain '
+          f'rel {row["rel_err"]:.3e} | kernel {row["ms"]:.4f} ms (call '
+          f'{row["call_ms"]:.4f}) plain '
           f'{row["plain_ms"]:.4f} bound {row["bound_ms"]:.6f} '
           f'({row["bound_by"]})')
       if not row['rel_err'] <= TOL[torch.float32]:
@@ -429,14 +524,82 @@ def ukf_phase(cycles, out_dir):
   return report, launches, failures
 
 
+def profiled(name, fn):
+  """``fn()`` under ``torch.profiler``: host seconds (the device
+  synchronised at the end), device-busy seconds (the sum of the device ops'
+  own times; one stream, so they do not overlap), the idle share, the
+  number of device kernels and copies, and the top ones.  Returns (the
+  summary, what ``fn`` returned)."""
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+    start = time.perf_counter()
+    result = fn()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - start
+  # The device's own events (kernels, copies), not the host ops that
+  # launched them, whose device times would count each kernel twice.
+  device_ops = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+  busy_s = sum(e.self_device_time_total for e in device_ops) * 1e-6
+  top = sorted(device_ops, key=lambda e: -e.self_device_time_total)[:6]
+  host_ops = sorted((e for e in prof.key_averages()
+                     if e.device_type == DeviceType.CPU),
+                    key=lambda e: -e.self_cpu_time_total)[:6]
+  # No device op in the trace means the profiler saw no device time, not
+  # an idle device: the share is then not measured.
+  out = dict(host_s=host_s, device_busy_s=busy_s,
+             idle_share=1 - busy_s / host_s if device_ops else None,
+             device_ops=sum(e.count for e in device_ops),
+             top=[(e.key, e.count, e.self_device_time_total * 1e-3)
+                  for e in top],
+             top_host=[(e.key, e.count, e.self_cpu_time_total * 1e-3)
+                       for e in host_ops])
+  share = out['idle_share']
+  log(f'  {name}: host {host_s:.4f} s, device busy {busy_s:.4f} s '
+      f'(idle share {"not measured" if share is None else f"{share:.3f}"}'
+      f'), {out["device_ops"]} device kernels and copies')
+  for key, count, ms in out['top']:
+    log(f'    {ms:9.3f} ms  x{count:<5d} {key[:90]}')
+  log('    host ops by own CPU time:')
+  for key, count, ms in out['top_host']:
+    log(f'    {ms:9.3f} ms  x{count:<5d} {key[:90]}')
+  return out, result
+
+
+def sampler_profile_phase(config, model, seed):
+  """One steady step of the PC sampler (after a warm one), as
+  ``core/sampling.py`` runs it: the corrector, then the predictor, each
+  calling the score net at batch 8 in bf16."""
+  sde, _ = sde_lib.get_sde(config)
+  score_fn = registry.get_score_fn(sde, model, train=False,
+                                   continuous=config.training.continuous)
+  predictor = sampling.get_predictor(config.sampling.predictor.lower())
+  corrector = sampling.get_corrector(config.sampling.corrector.lower())
+  g = torch.Generator(device='cuda').manual_seed(seed)
+  size, ch = config.data.image_size, config.data.num_channels
+  shape = (BATCH, size, size, ch)
+
+  def draw():
+    return torch.randn(shape, generator=g, device='cuda')
+
+  def step(x, t):
+    vec_t = torch.full((BATCH,), t, device='cuda')
+    x, _ = corrector(x, vec_t, sde, score_fn, config.sampling.snr,
+                     config.sampling.n_steps_each, draw)
+    x, _ = predictor(x, vec_t, sde, score_fn,
+                     config.sampling.probability_flow, draw)
+    return x
+
+  with torch.inference_mode():
+    x = step(draw(), 0.5)                                # the warm step
+    out, _ = profiled('sampler step', lambda: step(x, 0.4))
+  return out
+
+
 def ukf_profile_phase(seed):
   """One steady ukf cycle (after a warm one) under ``torch.profiler``, the
-  measurement and the filter each in its own window: host seconds (the
-  device synchronised at the end), device-busy seconds (the sum of the
-  device ops' own times; one stream, so they do not overlap), kernel
-  kernels and copies, and the top ones."""
-  from torch.autograd import DeviceType
-  from torch.profiler import ProfilerActivity, profile
+  measurement and the filter each in its own window (see ``profiled``)."""
   config = configs.get_config(UKF_CONFIG)
   size = config.data.image_size
   data = ns_rollout(3, size, size, config.seed, device='cuda')
@@ -455,37 +618,11 @@ def ukf_profile_phase(seed):
                                                prep(2, i), generator),
            'filter': lambda i, m: kf.filter(prep(2, i), m)}
   parts['filter'](1, parts['measurement'](1))          # the warm cycle
-  out, measurement = {}, None
-  for name in ('measurement', 'filter'):
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-      start = time.perf_counter()
-      if name == 'measurement':
-        measurement = parts[name](2)
-      else:
-        parts[name](2, measurement)
-      torch.cuda.synchronize()
-      host_s = time.perf_counter() - start
-    # The device's own events (kernels, copies), not the host ops that
-    # launched them, whose device times would count each kernel twice.
-    device_ops = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA]
-    busy_s = sum(e.self_device_time_total for e in device_ops) * 1e-6
-    top = sorted(device_ops, key=lambda e: -e.self_device_time_total)[:6]
-    # No device op in the trace means the profiler saw no device time,
-    # not an idle device: the share is then not measured.
-    out[name] = dict(
-        host_s=host_s, device_busy_s=busy_s,
-        idle_share=1 - busy_s / host_s if device_ops else None,
-        device_ops=sum(e.count for e in device_ops),
-        top=[(e.key, e.count, e.self_device_time_total * 1e-3) for e in top])
-    share = out[name]['idle_share']
-    log(f'  {name}: host {host_s:.4f} s, device busy {busy_s:.4f} s '
-        f'(idle share {"not measured" if share is None else f"{share:.3f}"}'
-        f'), {out[name]["device_ops"]} device kernels and copies')
-    for key, count, ms in out[name]['top']:
-      log(f'    {ms:9.3f} ms  x{count:<5d} {key[:90]}')
+  out = {}
+  out['measurement'], measurement = profiled(
+      'measurement', lambda: parts['measurement'](2))
+  out['filter'], _ = profiled(
+      'filter', lambda: parts['filter'](2, measurement))
   return out
 
 
@@ -502,15 +639,23 @@ def forward_phase(seed):
       torch.cuda.synchronize()
       abs_err, rel = rel_err(got, want)
       finite = bool(torch.isfinite(got).all())
-      t_kernel = time_ms(lambda: kernel_model(x, labels, train=False), 5, 1)
-      t_plain = time_ms(lambda: plain_model(x, labels, train=False), 5, 1)
+      ms = {}
+      for path, net in (('kernel', kernel_model), ('plain', plain_model)):
+        ms[path] = time_ms(lambda: net(x, labels, train=False), 5, 1)
+        ms[path + '_device'] = device_ms(lambda: net(x, labels, train=False),
+                                         3, 1)
     name = str(dtype).split('.')[-1]
     out[name] = dict(max_abs_err=abs_err, rel_err=rel, tol=TOL[dtype],
                      max_abs_out=float(want.abs().max()),
-                     kernel_forward_ms=t_kernel, plain_forward_ms=t_plain)
+                     kernel_forward_ms=ms['kernel'],
+                     plain_forward_ms=ms['plain'],
+                     kernel_forward_device_ms=ms['kernel_device'],
+                     plain_forward_device_ms=ms['plain_device'])
     log(f'  forward {name}: abs {abs_err:.3e} rel {rel:.3e} '
         f'(limit {TOL[dtype]}), max|y| {out[name]["max_abs_out"]:.3e}, '
-        f'forward ms kernel path {t_kernel:.2f} plain path {t_plain:.2f}')
+        f'forward ms kernel path {ms["kernel"]:.2f} (device '
+        f'{ms["kernel_device"]:.2f}) plain path {ms["plain"]:.2f} (device '
+        f'{ms["plain_device"]:.2f})')
     if not (finite and rel <= TOL[dtype]):
       failures.append(f'forward {name}: rel {rel:.3e}, finite {finite}')
     del kernel_model, plain_model
@@ -554,6 +699,11 @@ def main():
     for line in text.splitlines():
       if 'registers' in line or 'spill' in line:
         log(f'  {name}: {line.strip()}')
+  report['hgmma'] = hgmma_count()
+  log(f'  HGMMA instructions in conv3x3_wgmma SASS: '
+      f'{"SASS not inspected (no cuobjdump)" if report["hgmma"] is None else report["hgmma"]}')
+  if report['hgmma'] == 0:
+    failures.append('conv3x3_wgmma: no HGMMA instruction in its SASS')
 
   log('[kernels vs plain, main-path shapes]')
   _, model = flagship(torch.bfloat16, True, args.seed)
@@ -562,12 +712,15 @@ def main():
   per_forward = {'conv3x3': sum(conv_sites.values()),
                  'groupnorm_act': sum(norm_sites.values())}
   log(f'  sites per forward: {per_forward}')
-  conv_rows, conv_total, f1 = kernel_phase('conv3x3', conv_sites, check_conv,
-                                           args.seed)
-  norm_rows, norm_total, f2 = kernel_phase('groupnorm_act', norm_sites,
-                                           check_norm, args.seed)
+  conv_rows, conv_total, conv_more, f1 = kernel_phase(
+      'conv3x3', conv_sites, check_conv, args.seed)
+  norm_rows, norm_total, norm_more, f2 = kernel_phase(
+      'groupnorm_act', norm_sites, check_norm, args.seed)
   failures += f1 + f2
   report['kernels'] = {'conv3x3': conv_rows, 'groupnorm_act': norm_rows}
+  report['per_forward_bf16'] = {
+      'conv3x3': dict(conv_total, **conv_more),
+      'groupnorm_act': dict(norm_total, **norm_more)}
 
   log('[K3, K4 vs plain, ukf-path shapes, f32]')
   flow_rows, flow_totals, f4 = flow_kernel_phase(args.seed)
@@ -586,6 +739,8 @@ def main():
   for kernel in (k1.conv3x3, k2.groupnorm_act, k3.correlation,
                  k4.ns_step_fused):
     kernel.launches = 0
+  k1.conv3x3.launches_by_kernel = dict.fromkeys(
+      k1.conv3x3.launches_by_kernel, 0)
   requests = []
   for r in range(args.requests):
     torch.cuda.synchronize()
@@ -608,14 +763,19 @@ def main():
                       f'{tuple(samples.shape)}')
   launches = {'conv3x3': k1.conv3x3.launches,
               'groupnorm_act': k2.groupnorm_act.launches}
-  log(f'  launches: {launches} (per forward {per_forward}, x {steps} steps '
-      f'x {args.requests} requests)')
+  by_kernel = dict(k1.conv3x3.launches_by_kernel)
+  log(f'  launches: {launches}, conv3x3 by kernel {by_kernel} (per forward '
+      f'{per_forward}, x {steps} steps x {args.requests} requests)')
   for name, n in launches.items():
     if n == 0 or n != per_forward[name] * steps * args.requests:
       failures.append(f'{name}: {n} launches, expected '
                       f'{per_forward[name] * steps * args.requests}')
+  if by_kernel['wgmma'] != launches['conv3x3'] or by_kernel['direct']:
+    failures.append(f'conv3x3: bf16 sites left the wgmma kernel: {by_kernel}')
   report.update(requests=requests, launches=launches, steps=steps,
-                per_forward=per_forward)
+                per_forward=per_forward, conv3x3_by_kernel=by_kernel)
+  log('[serve: one steady sampler step under torch.profiler]')
+  report['sampler_profile'] = sampler_profile_phase(config, model, args.seed)
 
   config = configs.get_config(UKF_CONFIG)
   log(f'[ukf: {UKF_CONFIG}, {config.data.image_size}x'
@@ -629,7 +789,7 @@ def main():
 
   table = {'kernels': [
       dict(name='conv3x3', route='cuda',
-           source='b_pinn_kalman_filter_tpu_torch/csrc/conv3x3.cu',
+           source='b_pinn_kalman_filter_tpu_torch/csrc/conv3x3_wgmma.cu',
            replaces='b_pinn_kalman_filter_tpu/ops/winograd_pallas.py:159',
            launches=launches['conv3x3'], **conv_total),
       dict(name='groupnorm_act', route='cuda',
@@ -653,8 +813,9 @@ def main():
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, 'chip_smoke.json'), 'w') as f:
       json.dump(report, f, indent=1)
-  log(f'total {report["seconds"]:.1f} s; kernel-table times: K1, K2 per '
-      'U-Net forward (sum over the sites of one forward, bf16), K3, K4 per '
+  log(f'total {report["seconds"]:.1f} s; kernel-table times (device ms): '
+      'K1, K2 per U-Net forward (sum over the sites of one forward, bf16), '
+      'K3, K4 per '
       'ukf cycle (f32); launches from the sampler (K1, K2) and the ukf run '
       '(K3, K4)')
   if failures:

@@ -1,0 +1,143 @@
+"""The port's kernel plans: which K1 kernel a conv takes, its pixel boxes and
+split-K, and K2's cluster.  Pure Python (no JAX, no compiler, no card).
+
+The site shapes are those of the flagship U-Net (``vp/cifar10_ddpmpp_continuous``,
+batch 8), counted from ``models/ddpm.py``: 79 K1 sites and 76 K2 sites.
+"""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from b_pinn_kalman_filter_tpu_torch.ops import conv3x3 as k1
+from b_pinn_kalman_filter_tpu_torch.ops import groupnorm as k2
+
+BATCH = 8
+# (H, Cin, Cout): number of sites per forward.
+CONV_SITES = {
+    (32, 128, 128): 13, (32, 256, 128): 4, (32, 384, 128): 1,
+    (32, 256, 256): 1,
+    (16, 128, 256): 1, (16, 256, 256): 13, (16, 512, 256): 4,
+    (16, 384, 256): 1,
+    (8, 256, 256): 14, (8, 512, 256): 5,
+    (4, 256, 256): 17, (4, 512, 256): 5,
+}
+SITES = sorted(CONV_SITES)
+# (H, C): the GroupNorm+SiLU sites' shapes (G = 32).
+NORM_SHAPES = [(32, 128), (32, 256), (32, 384), (16, 128), (16, 256),
+               (16, 384), (16, 512), (8, 256), (8, 512), (4, 256), (4, 512)]
+
+
+def test_site_table_counts_79_convs():
+  assert sum(CONV_SITES.values()) == 79
+  assert sum(n for (h, _, _), n in CONV_SITES.items() if h <= 8) == 41
+
+
+@pytest.mark.parametrize('site', SITES)
+def test_main_path_bf16_sites_take_the_wgmma_kernel(site):
+  _, cin, cout = site
+  assert k1.kernel_for(torch.bfloat16, cin, cout) == 'wgmma'
+  assert k1.kernel_for(torch.float32, cin, cout) == 'direct'
+
+
+@pytest.mark.parametrize('dtype,cin,cout,want', [
+    (torch.float32, 128, 128, 'direct'),     # TF32 would miss 1e-4
+    (torch.bfloat16, 3, 128, 'direct'),      # Cin % 8: no 16-byte stride
+    (torch.bfloat16, 36, 64, 'direct'),
+    (torch.bfloat16, 64, 3, 'direct'),       # Cout % 8
+    (torch.bfloat16, 40, 72, 'wgmma'),       # ragged against 64, but % 8
+    (torch.bfloat16, 32, 32, 'wgmma'),
+])
+def test_dispatch_rule(dtype, cin, cout, want):
+  assert k1.kernel_for(dtype, cin, cout) == want
+
+
+def _coverage(B, H, W):
+  """How often each pixel of (B, H, W) lies in a tile's box."""
+  bb, hb, wb = k1.wgmma_box(B, H, W)
+  seen = np.zeros((B, H, W), dtype=int)
+  for b0 in range(0, B, bb):
+    for h0 in range(0, H, hb):
+      for w0 in range(0, W, wb):
+        seen[b0:b0 + bb, h0:h0 + hb, w0:w0 + wb] += 1
+  return seen
+
+
+@pytest.mark.parametrize('bhw', [(BATCH, 32, 32), (BATCH, 16, 16),
+                                 (BATCH, 8, 8), (BATCH, 4, 4), (3, 7, 9),
+                                 (1, 1, 1), (2, 100, 3), (1, 5, 130)])
+def test_boxes_cover_each_pixel_once(bhw):
+  B, H, W = bhw
+  bb, hb, wb = k1.wgmma_box(B, H, W)
+  assert bb * hb * wb == k1.WGMMA_BM
+  assert all(d & (d - 1) == 0 for d in (bb, hb, wb))
+  assert (_coverage(B, H, W) == 1).all()
+  plan = k1.wgmma_plan(B, H, W, 64, 64)
+  assert plan['tiles_m'] == (math.ceil(B / bb) * math.ceil(H / hb)
+                             * math.ceil(W / wb))
+
+
+def test_boxes_are_whole_rows_on_the_main_path():
+  assert k1.wgmma_box(BATCH, 32, 32) == (1, 2, 32)
+  assert k1.wgmma_box(BATCH, 16, 16) == (1, 4, 16)
+  assert k1.wgmma_box(BATCH, 8, 8) == (1, 8, 8)
+  assert k1.wgmma_box(BATCH, 4, 4) == (4, 4, 4)
+
+
+@pytest.mark.parametrize('site', SITES)
+def test_split_k_fills_the_card(site):
+  H, cin, cout = site
+  plan = k1.wgmma_plan(BATCH, H, H, cin, cout)
+  assert plan['bn'] in (64, 128) and 1 <= plan['split'] <= k1.MAX_SPLIT
+  assert plan['blocks'] == (plan['tiles_m'] * plan['tiles_n']
+                            * plan['split'])
+  assert plan['tiles_n'] * plan['bn'] >= cout
+  # Every split has K steps to run, and the small levels fill half the SMs.
+  assert plan['k_steps'] >= k1.MIN_STEPS_PER_SPLIT * plan['split']
+  if H <= 8:
+    assert plan['split'] > 1 and plan['blocks'] >= 64
+  else:
+    assert plan['blocks'] >= 64
+
+
+@pytest.mark.parametrize('hc', NORM_SHAPES)
+def test_groupnorm_cluster_keeps_main_path_images_on_chip(hc):
+  H, C = hc
+  for itemsize in (2, 4):
+    plan = k2.groupnorm_plan(H, H, C, 32, itemsize)
+    cluster = plan['cluster']
+    assert cluster in (1, 2, 4, 8)
+    # Split only while every block keeps MIN_SLICE_BYTES of the image.
+    image = H * H * C * itemsize
+    assert cluster == 1 or image // cluster >= k2.MIN_SLICE_BYTES
+    assert cluster == k2.MAX_CLUSTER or image // (2 * cluster) < (
+        k2.MIN_SLICE_BYTES)
+    if H == 32:
+      assert cluster == k2.MAX_CLUSTER
+    assert plan['vec'] * itemsize == 16 and C % plan['vec'] == 0
+    assert 1 <= plan['q'] <= plan['threads']
+    assert plan['threads'] == (k2.SMALL_THREADS if plan['slice_bytes'] <= (
+        k2.MIN_SLICE_BYTES) else k2.THREADS)
+    assert plan['smem_bytes'] <= k2.SMEM_LIMIT
+    if itemsize == 2:
+      assert plan['on_chip']
+
+
+@pytest.mark.parametrize('shape,itemsize,want', [
+    # (H, W, C, G): cluster, vec, on_chip
+    ((64, 64, 512, 32), 2, (8, 8, False)),   # 4 MB: larger than a cluster
+    ((5, 7, 24, 8), 2, (1, 8, True)),        # cg = 3, 48-byte pixel rows
+    ((5, 7, 24, 8), 4, (1, 4, True)),
+    ((48, 48, 24, 8), 2, (4, 8, True)),      # the same, over a cluster
+    ((4, 4, 30, 6), 2, (1, 1, True)),        # 60-byte rows: scalar loads
+    ((40, 40, 30, 6), 2, (4, 1, True)),
+    ((2, 2, 4096, 32), 4, (4, 4, True)),     # 64 KB: one pixel a block
+    ((1, 1, 8, 4), 2, (1, 8, True)),
+])
+def test_groupnorm_plan_edges(shape, itemsize, want):
+  plan = k2.groupnorm_plan(*shape, itemsize)
+  assert (plan['cluster'], plan['vec'], plan['on_chip']) == want
+  H, W = shape[:2]
+  assert plan['cluster'] <= H * W

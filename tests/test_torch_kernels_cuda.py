@@ -36,30 +36,75 @@ def _rel(got, want):
                / want.float().abs().max())
 
 
-@pytest.mark.parametrize('dtype', DTYPES)
-@pytest.mark.parametrize('shape', [
-    (2, 16, 16, 256, 128),     # a main-path shape
-    (3, 7, 9, 40, 72),         # odd H and W, ragged channel and pixel tiles
-    (1, 1, 1, 32, 32),         # every tap but the centre falls in the halo
-])
-def test_conv3x3_matches_plain(card, shape, dtype):
+def _conv_inputs(card, shape, dtype):
   B, H, W, cin, cout = shape
   x = torch.randn((B, H, W, cin), generator=card, device='cuda').to(dtype)
   w = torch.randn((3, 3, cin, cout), generator=card, device='cuda') * 0.1
   b = torch.randn((cout,), generator=card, device='cuda')
+  return x, w, b
+
+
+@pytest.mark.parametrize('dtype', DTYPES)
+@pytest.mark.parametrize('shape', [
+    (2, 16, 16, 256, 128),     # a main-path shape
+    (8, 32, 32, 128, 128),     # one per level of the U-Net at batch 8:
+    (8, 16, 16, 512, 256),     # 64 x 128 tiles at 32x32, 64 x 64 below,
+    (8, 8, 8, 256, 256),       # split-K 4 at 8x8
+    (8, 4, 4, 512, 256),       # and 8 at 4x4
+    (3, 7, 9, 40, 72),         # odd H and W, ragged channel and pixel tiles
+    (1, 1, 1, 32, 32),         # every tap but the centre falls in the halo
+])
+def test_conv3x3_matches_plain(card, shape, dtype):
+  x, w, b = _conv_inputs(card, shape, dtype)
+  which = k1.kernel_for(dtype, shape[3], shape[4])
+  assert which == ('wgmma' if dtype == torch.bfloat16 else 'direct')
   before = k1.conv3x3.launches
+  by_kernel = dict(k1.conv3x3.launches_by_kernel)
   with torch.inference_mode():
     got = k1.conv3x3(x, w, b)
     want = k1.conv3x3_plain(x, w, b)
   assert k1.conv3x3.launches == before + 1
+  assert k1.conv3x3.launches_by_kernel == {
+      k: n + (k == which) for k, n in by_kernel.items()}
   assert got.dtype == dtype and got.shape == want.shape
   assert _rel(got, want) <= TOL[dtype]
 
 
+@pytest.mark.parametrize('shape', [(8, 4, 4, 512, 256), (8, 32, 32, 128, 128)])
+def test_conv3x3_wgmma_is_deterministic_and_agrees_with_direct(card, shape):
+  # Split-K sums its partials in a fixed order: two runs agree bit for bit.
+  x, w, b = _conv_inputs(card, shape, torch.bfloat16)
+  with torch.inference_mode():
+    first = k1.conv3x3(x, w, b)
+    again = k1.conv3x3(x, w, b)
+    direct = k1._conv3x3_direct(x, w, b)
+  assert torch.equal(first, again)
+  assert _rel(first, direct) <= TOL[torch.bfloat16]
+
+
+def test_conv3x3_wgmma_takes_an_unaligned_view(card):
+  x, w, b = _conv_inputs(card, (1, 4, 4, 72, 64), torch.bfloat16)
+  view = x[..., 8:]                          # starts 16 bytes in: aligned
+  odd = x.flatten()[1:1 + 4 * 4 * 64].reshape(1, 4, 4, 64)   # 2 bytes in
+  w = w[:, :, :64]
+  with torch.inference_mode():
+    for t in (view, odd):
+      assert _rel(k1.conv3x3(t, w, b), k1.conv3x3_plain(t, w, b)) <= TOL[
+          torch.bfloat16]
+
+
 @pytest.mark.parametrize('dtype', DTYPES)
 @pytest.mark.parametrize('act', ['silu', 'elu', 'none'])
-@pytest.mark.parametrize('shape,groups', [((2, 16, 16, 384), 32),
-                                          ((3, 5, 7, 24), 8)])
+@pytest.mark.parametrize('shape,groups', [
+    ((2, 16, 16, 384), 32),
+    ((3, 5, 7, 24), 8),        # cg = 3: a 16-byte load spans three groups
+    ((2, 48, 48, 24), 8),      # the same over a cluster of 4
+    ((2, 3, 5, 30), 6),        # 60-byte pixel rows: scalar loads
+    ((1, 40, 40, 30), 6),      # the same over a cluster of 4
+    ((8, 32, 32, 384), 32),    # the largest main-path site: 98 KB a block
+    ((8, 4, 4, 512), 32),      # two pixels a block
+    ((1, 64, 64, 512), 32),    # larger than a cluster holds: re-read
+])
 def test_groupnorm_act_matches_plain(card, shape, groups, act, dtype):
   # An offset mean: the variance must not come from E[x^2] - E[x]^2.
   x = (torch.randn(shape, generator=card, device='cuda') * 2 + 3).to(dtype)
@@ -72,6 +117,23 @@ def test_groupnorm_act_matches_plain(card, shape, groups, act, dtype):
   assert k2.groupnorm_act.launches == before + 1
   assert got.dtype == dtype
   assert _rel(got, want) <= TOL[dtype]
+
+
+@pytest.mark.parametrize('dtype', DTYPES)
+def test_groupnorm_act_pergroup_yardstick_matches_plain(card, dtype):
+  x = (torch.randn((2, 8, 8, 256), generator=card, device='cuda') * 2 + 3
+       ).to(dtype)
+  scale = 1 + 0.1 * torch.randn((256,), generator=card, device='cuda')
+  bias = 0.1 * torch.randn((256,), generator=card, device='cuda')
+  before = k2.groupnorm_act.launches
+  with torch.inference_mode():
+    got = k2._groupnorm_act_pergroup(x, scale, bias)
+    want = k2.groupnorm_act_plain(x, scale, bias)
+    first = k2.groupnorm_act(x, scale, bias)
+    again = k2.groupnorm_act(x, scale, bias)
+  assert k2.groupnorm_act.launches == before + 2
+  assert _rel(got, want) <= TOL[dtype]
+  assert torch.equal(first, again)     # the cluster sums in a fixed order
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(card):
