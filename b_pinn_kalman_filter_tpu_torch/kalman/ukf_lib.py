@@ -3,9 +3,10 @@ and the ``ukf`` entry point.
 
 Counterpart of the JAX package's ``kalman/ukf_lib.py`` (``UKF``,
 ``PINN_KF``, ``run``).  Per filter cycle on the card: 8 posterior draws of
-the PINN, one after another, each a FlowNet forward with one cost volume
-(kernel K3) per pyramid level; then one predict whose NS dynamics step all
-2n+1 sigma points in one call of kernel K4; then the update.  Not ported
+the PINN as one vmapped forward (``bayes.sample_uvp``), with one cost volume
+(kernel K3) per pyramid level over all the draws; then one predict whose NS
+dynamics step all 2n+1 sigma points in one call of kernel K4; then the
+update.  Not ported
 yet: checkpoint restore, the PNG grid of ``run`` and the ``mesh=`` option.
 """
 

@@ -25,7 +25,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, 'csrc')
 BUILD_DIR = os.path.join(_PKG, '_build')
 SOURCES = ('conv3x3', 'conv3x3_wgmma', 'groupnorm', 'groupnorm_pergroup',
-           'correlation', 'ns_step')
+           'correlation', 'correlation_tile', 'ns_step', 'ns_step_staged')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
@@ -107,6 +107,13 @@ def load(name: str, signatures: Dict[str, tuple]) -> ctypes.CDLL:
       fn.restype = ctypes.c_int
     _LOADED[name] = lib
   return lib
+
+
+def aligned(t: torch.Tensor) -> torch.Tensor:
+  """``t`` contiguous and starting on a 16-byte boundary (a view may start
+  elsewhere), as the kernels' 16-byte loads need."""
+  t = t.contiguous()
+  return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def check_launch(err: int, what: str) -> None:

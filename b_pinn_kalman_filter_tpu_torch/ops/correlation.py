@@ -13,12 +13,22 @@ with f2 zero outside the image and output size ceil(H/s) x ceil(W/s).
 :func:`correlation` launches the kernel for stride 1 on a CUDA tensor (or
 raises) and takes the plain version, :func:`correlation_plain`, for a CPU
 tensor; stride > 1 always takes the plain version, as the JAX dispatch
-does.  The kernel is forward only: its backward comes with PINN training.
+does.  Under ``torch.func.vmap`` the mapped dimensions are folded into the
+batch and the cost volume runs as ONE call (one kernel launch on the
+card), as the JAX package's ``jax.vmap`` over B-PINN draws folds them into
+one cost volume; the rule is the same on every device.
+``correlation.launches`` counts the launches and ``correlation.batches``
+the launches by batch size.  :func:`correlation_plan` sizes the kernel's
+tiles and cluster.  The kernel is forward only: its backward comes with
+PINN training.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
+import functools
+from typing import Dict
 
 import torch
 import torch.nn.functional as F
@@ -26,10 +36,26 @@ import torch.nn.functional as F
 from b_pinn_kalman_filter_tpu_torch.ops import _build
 
 _D = 3   # maximum displacement (7x7 window)
+SHIFTS = (2 * _D + 1) ** 2
 _SIGNATURES = {
-    'correlation_f32': (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 4
+    'correlation_f32': (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 11
                        + (ctypes.c_void_p,),
 }
+_TILE_SIGNATURES = {
+    'correlation_tile_f32': (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 4
+                            + (ctypes.c_void_p,),
+}
+# csrc/correlation.cu's sizes: at most 256 threads a block, clusters of at
+# most 8 blocks, 16 channels a stage, the H100's 227 KB of shared memory a
+# block.  The plan aims at half a wave of the card's 132 SMs.
+MAX_THREADS = 256
+MAX_SPLIT = 8
+CHUNK = 16
+SMEM_LIMIT = 232448
+MAX_TILE_W = 32
+MIN_BLOCKS = 64
+MIN_THREADS = 112          # rows of a tile are not cut below this
+MIN_RANK_CHANNELS = 8      # nor the channels of a cluster rank
 
 
 def correlation_plain(f1: torch.Tensor, f2: torch.Tensor,
@@ -51,16 +77,56 @@ def correlation_plain(f1: torch.Tensor, f2: torch.Tensor,
   return torch.stack(outs, dim=-1)
 
 
-def correlation(f1: torch.Tensor, f2: torch.Tensor,
-                stride: int = 1) -> torch.Tensor:
-  """Cost volume of f1 against f2, (B, H, W, C) float32 each."""
-  if stride != 1:
-    return correlation_plain(f1, f2, stride)
-  _build.forward_only('correlation', f1, f2)
-  if f1.device.type == 'cpu':
-    return correlation_plain(f1, f2)
-  if f1.device.type != 'cuda':
-    raise ValueError(f'correlation: no kernel for device {f1.device}')
+def _pad_col(x: int, strip: int) -> int:
+  return x + x // strip if strip > 1 else x
+
+
+@functools.lru_cache(maxsize=None)
+def correlation_plan(B: int, H: int, W: int, C: int) -> Dict:
+  """How csrc/correlation.cu covers a (B, H, W, C) cost volume.
+
+  ``strip``: pixels along x a thread owns (4, 2 or 1: the widest that
+  divides W, 4 from 16 columns up, 2 from 8).  ``tw`` x ``th``: a block's
+  tile, dividing W and H exactly; ``tw`` the widest divisor of W up to 32
+  that is a multiple of ``strip``, ``th`` the most rows within 256 threads
+  (7 dy x th x tw / strip), cut while the grid has fewer than 64 blocks
+  and the block keeps 112 threads.  ``split``: blocks of a cluster that
+  share a tile, each taking ``cs`` channels (a multiple of 4, at least 8),
+  doubled up to 8 while the grid has fewer than 64 blocks.  ``stages``: 2
+  (double-buffered) where a block has more than one 16-channel chunk.
+  ``vec``: 16-byte copies, where C is a multiple of 4.
+  """
+  strip = (4 if W % 4 == 0 and W >= 16 else
+           2 if W % 2 == 0 and W >= 8 else 1)
+  tw = max(d for d in range(strip, min(W, MAX_TILE_W) + 1, strip)
+           if W % d == 0)
+  per_row = (2 * _D + 1) * (tw // strip)
+  rows = [d for d in range(H, 0, -1) if H % d == 0]
+  th = next(d for d in rows if d * per_row <= MAX_THREADS)
+  for d in rows:
+    if d >= th:
+      continue
+    if B * (H // th) * (W // tw) >= MIN_BLOCKS or d * per_row < MIN_THREADS:
+      break
+    th = d
+  tiles = (H // th) * (W // tw)
+  split = 1
+  while (B * tiles * split < MIN_BLOCKS and split < MAX_SPLIT
+         and C % (8 * split) == 0
+         and C // (2 * split) >= MIN_RANK_CHANNELS):
+    split *= 2
+  cs = C // split
+  stages = 2 if cs > CHUNK else 1
+  w1 = _pad_col(tw - 1, strip) + 1
+  w2 = _pad_col(tw + 2 * _D - 1, strip) + 1
+  stage_vecs = (CHUNK // 4) * (th * w1 + (th + 2 * _D) * w2)
+  smem = stages * stage_vecs * 16 + th * tw * SHIFTS * 4
+  return dict(strip=strip, tw=tw, th=th, split=split, cs=cs, stages=stages,
+              vec=int(C % 4 == 0), threads=per_row * th, tiles=tiles,
+              blocks=B * tiles * split, smem_bytes=smem)
+
+
+def _check(f1: torch.Tensor, f2: torch.Tensor) -> None:
   if f1.ndim != 4 or f1.shape != f2.shape:
     raise ValueError(f'correlation: f1 {tuple(f1.shape)} and f2 '
                      f'{tuple(f2.shape)} must share one (B, H, W, C) shape')
@@ -71,20 +137,80 @@ def correlation(f1: torch.Tensor, f2: torch.Tensor,
   B, H, W, C = f1.shape
   if f1.numel() == 0:
     raise ValueError(f'correlation: empty input {tuple(f1.shape)}')
-  if max(f1.numel(), B * H * W * 49) >= 2 ** 31:
+  if max(f1.numel(), B * H * W * SHIFTS) >= 2 ** 31:
     raise ValueError('correlation: tensor too large for 32-bit indexing')
 
-  f1 = f1.contiguous()
-  f2 = f2.contiguous()
-  out = torch.empty((B, H, W, (2 * _D + 1) ** 2), dtype=torch.float32,
-                    device=f1.device)
+
+def _cost_volume(f1: torch.Tensor, f2: torch.Tensor) -> torch.Tensor:
+  """Stride 1 on plain (unbatched) tensors: the kernel on a CUDA tensor,
+  the plain version on a CPU one."""
+  if f1.device.type == 'cpu':
+    return correlation_plain(f1, f2)
+  if f1.device.type != 'cuda':
+    raise ValueError(f'correlation: no kernel for device {f1.device}')
+  _check(f1, f2)
+  B, H, W, C = f1.shape
+  plan = correlation_plan(B, H, W, C)
+  f1, f2 = _build.aligned(f1), _build.aligned(f2)
+  out = torch.empty((B, H, W, SHIFTS), dtype=torch.float32, device=f1.device)
   lib = _build.load('correlation', _SIGNATURES)
   stream = torch.cuda.current_stream(f1.device).cuda_stream
-  err = lib.correlation_f32(f1.data_ptr(), f2.data_ptr(), out.data_ptr(),
-                            B, H, W, C, stream)
+  err = lib.correlation_f32(
+      f1.data_ptr(), f2.data_ptr(), out.data_ptr(), B, H, W, C, plan['th'],
+      plan['tw'], plan['strip'], plan['split'], plan['cs'], plan['stages'],
+      plan['vec'], stream)
   _build.check_launch(err, 'correlation')
   correlation.launches += 1
+  correlation.batches[B] += 1
+  return out
+
+
+class _CostVolume(torch.autograd.Function):
+  """The stride-1 cost volume with a vmap rule that folds the mapped
+  dimensions into the batch, so a vmapped call is one call."""
+
+  @staticmethod
+  def forward(f1, f2):
+    return _cost_volume(f1, f2)
+
+  @staticmethod
+  def setup_context(ctx, inputs, output):
+    pass
+
+  @staticmethod
+  def vmap(info, in_dims, f1, f2):
+    n = info.batch_size
+    f1, f2 = (t.expand(n, *t.shape) if d is None else t.movedim(d, 0)
+              for t, d in zip((f1, f2), in_dims))
+    out = _CostVolume.apply(f1.reshape(-1, *f1.shape[2:]),
+                            f2.reshape(-1, *f2.shape[2:]))
+    return out.reshape(n, -1, *out.shape[1:]), 0
+
+
+def correlation(f1: torch.Tensor, f2: torch.Tensor,
+                stride: int = 1) -> torch.Tensor:
+  """Cost volume of f1 against f2, (B, H, W, C) float32 each."""
+  if stride != 1:
+    return correlation_plain(f1, f2, stride)
+  _build.forward_only('correlation', f1, f2)
+  return _CostVolume.apply(f1, f2)
+
+
+def _correlation_tile(f1: torch.Tensor, f2: torch.Tensor) -> torch.Tensor:
+  """The first card design (csrc/correlation_tile.cu, one block per image
+  and 8x8 tile) on CUDA tensors: the yardstick ``chip_smoke.py`` times
+  beside :func:`correlation`.  The main path never calls it."""
+  _check(f1, f2)
+  B, H, W, C = f1.shape
+  f1, f2 = f1.contiguous(), f2.contiguous()
+  out = torch.empty((B, H, W, SHIFTS), dtype=torch.float32, device=f1.device)
+  lib = _build.load('correlation_tile', _TILE_SIGNATURES)
+  stream = torch.cuda.current_stream(f1.device).cuda_stream
+  err = lib.correlation_tile_f32(f1.data_ptr(), f2.data_ptr(), out.data_ptr(),
+                                 B, H, W, C, stream)
+  _build.check_launch(err, 'correlation (tile)')
   return out
 
 
 correlation.launches = 0
+correlation.batches = collections.Counter()

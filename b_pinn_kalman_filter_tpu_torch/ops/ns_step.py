@@ -2,7 +2,16 @@
 
 Counterpart of the JAX package's ``ops/ns_step.py`` (the plain functions,
 same names) and of the TPU kernel ``ops/ns_step_pallas.py``
-``ns_step_fused`` (kernel K4), whose card version is ``csrc/ns_step.cu``.
+``ns_step_fused`` (kernel K4).  On the card, :func:`ns_step_plan` picks one
+of two kernels from the image's shape alone:
+
+- ``'smem'`` (``csrc/ns_step.cu``): one launch, the image's working set in
+  shared memory (every image whose fields fit in one block's 227 KB: 64x64,
+  the UKF's size, and somewhat larger), one block per image, or a cluster
+  of up to 8 sharing its rows where the batch is too small to fill the
+  card;
+- ``'staged'`` (``csrc/ns_step_staged.cu``): three launches through L2,
+  for larger images.
 
 Semantics as in the JAX package: central differences, one-sided at the
 edges; CIP advection with the upwind neighbour picked by the sign of the
@@ -10,14 +19,15 @@ velocity, where ``u >= 0`` counts as positive (sign(0) = +1); reflect
 boundaries; one step is velocity, then pressure, then density.
 
 :func:`ns_step_fused` takes the plain version, :func:`ns_step`, only for
-tensors on the CPU; for CUDA tensors it launches the kernel or raises.
-Forward only: the backward comes with the training slice.
+tensors on the CPU; for CUDA tensors it launches a kernel or raises.
+``ns_step_fused.launches`` counts its calls, ``launches_by_kernel`` each
+kernel's.  Forward only: the backward comes with the training slice.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
@@ -25,9 +35,23 @@ from b_pinn_kalman_filter_tpu_torch.ops import _build
 
 Tensor = torch.Tensor
 _SIGNATURES = {
-    'ns_step_f32': (ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 3
-                   + (ctypes.c_float,) * 4 + (ctypes.c_void_p,),
+    'ns_step_f32': (ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 3
+                   + (ctypes.c_float,) * 4 + (ctypes.c_int,) * 3
+                   + (ctypes.c_void_p,),
 }
+_STAGED_SIGNATURES = {
+    'ns_step_staged_f32': (ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 3
+                          + (ctypes.c_float,) * 4 + (ctypes.c_void_p,),
+}
+# csrc/ns_step.cu keeps ten f32 fields of an image in shared memory (p,
+# dens, u_n, v_n, four gradients, u2, v2), within the H100's 227 KB a block,
+# an image's rows shared by a cluster of at most 8 blocks; a launch aims at
+# one wave of the H100's 132 SMs.
+SMEM_FIELDS = 10
+SMEM_LIMIT = 232448
+MAX_CLUSTER = 8
+NUM_SMS = 132
+THREADS = 1024   # a block an image (512 a block of a cluster)
 
 
 def _sshift_x(f: Tensor, s: int) -> Tensor:
@@ -171,20 +195,58 @@ def ns_step(dens: Tensor, u: Tensor, v: Tensor, pres: Tensor, dt: float,
   return dens, u, v, pres
 
 
+def ns_step_plan(B: int, H: int, W: int) -> Dict:
+  """How a (B, H, W) step runs on the card.  ``kernel``: ``'smem'`` (one
+  launch) where an image's ten fields fit in one block's shared memory,
+  else ``'staged'``.  ``cluster``: blocks that share an image's rows,
+  doubled up to 8 while they divide H and B * cluster blocks stay within
+  one wave of the card.  ``smem_bytes``: a block's fields.  ``vec``:
+  16-byte loads and stores, for a block an image of a multiple of 4 floats,
+  at least 4 for each of its threads."""
+  image = SMEM_FIELDS * H * W * 4
+  if image > SMEM_LIMIT:
+    return dict(kernel='staged', cluster=1, smem_bytes=image, vec=0)
+  cluster = 1
+  while (cluster < MAX_CLUSTER and H % (2 * cluster) == 0
+         and B * 2 * cluster <= NUM_SMS):
+    cluster *= 2
+  pixels = H * W
+  return dict(kernel='smem', cluster=cluster, smem_bytes=image // cluster,
+              vec=int(cluster == 1 and pixels % 4 == 0
+                      and pixels >= 4 * THREADS))
+
+
 def ns_step_fused(dens: Tensor, u: Tensor, v: Tensor, p: Tensor, dt: float,
                   dx: float) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
-  """One NS step on (B, H, W) f32 fields (kernel K4 on the card).
-
-  The kernel runs as three stages in one call (velocity pressure-gradient
-  update; CIP self-advection; pressure relaxation and density advection),
-  which counts as one launch.
-  """
+  """One NS step on (B, H, W) f32 fields (kernel K4 on the card): one
+  launch per call, the kernel of :func:`ns_step_plan`."""
   fields = (dens, u, v, p)
   _build.forward_only('ns_step_fused', *fields)
   if dens.device.type == 'cpu':
     return ns_step(dens, u, v, p, dt, dx)
   if dens.device.type != 'cuda':
     raise ValueError(f'ns_step_fused: no kernel for device {dens.device}')
+  _check(fields)
+  B, H, W = dens.shape
+  plan = ns_step_plan(B, H, W)
+  if plan['kernel'] == 'staged':
+    outs = _staged(fields, dt, dx)
+  else:
+    ins = [_build.aligned(t) for t in fields]
+    outs = [torch.empty_like(ins[0]) for _ in range(4)]
+    lib = _build.load('ns_step', _SIGNATURES)
+    stream = torch.cuda.current_stream(dens.device).cuda_stream
+    err = lib.ns_step_f32(*[t.data_ptr() for t in ins + outs], B, H, W, dt,
+                          dx, dx ** 3, 8 * dt, plan['cluster'], plan['vec'],
+                          plan['smem_bytes'], stream)
+    _build.check_launch(err, 'ns_step_fused')
+  ns_step_fused.launches += 1
+  ns_step_fused.launches_by_kernel[plan['kernel']] += 1
+  return tuple(outs)
+
+
+def _check(fields) -> None:
+  dens = fields[0]
   if dens.ndim != 3 or any(t.shape != dens.shape for t in fields):
     raise ValueError('ns_step_fused: fields must share one (B, H, W) shape, '
                      f'got {[tuple(t.shape) for t in fields]}')
@@ -198,16 +260,29 @@ def ns_step_fused(dens: Tensor, u: Tensor, v: Tensor, p: Tensor, dt: float,
   if dens.numel() >= 2 ** 31:
     raise ValueError('ns_step_fused: fields too large for 32-bit indexing')
 
+
+def _staged(fields, dt: float, dx: float) -> list:
   ins = [t.contiguous() for t in fields]
   outs = [torch.empty_like(ins[0]) for _ in range(4)]
   scratch = [torch.empty_like(ins[0]) for _ in range(2)]   # u_n, v_n
-  lib = _build.load('ns_step', _SIGNATURES)
-  stream = torch.cuda.current_stream(dens.device).cuda_stream
-  err = lib.ns_step_f32(*[t.data_ptr() for t in ins + outs + scratch],
-                        B, H, W, dt, dx, dx ** 3, 8 * dt, stream)
-  _build.check_launch(err, 'ns_step_fused')
-  ns_step_fused.launches += 1
-  return tuple(outs)
+  B, H, W = ins[0].shape
+  lib = _build.load('ns_step_staged', _STAGED_SIGNATURES)
+  stream = torch.cuda.current_stream(ins[0].device).cuda_stream
+  err = lib.ns_step_staged_f32(*[t.data_ptr() for t in ins + outs + scratch],
+                               B, H, W, dt, dx, dx ** 3, 8 * dt, stream)
+  _build.check_launch(err, 'ns_step_fused (staged)')
+  return outs
+
+
+def _ns_step_staged(dens: Tensor, u: Tensor, v: Tensor, p: Tensor,
+                    dt: float, dx: float) -> Tuple[Tensor, ...]:
+  """The staged kernel on CUDA fields of any size, whatever
+  :func:`ns_step_plan` would pick: the yardstick ``chip_smoke.py`` times
+  beside the one-launch kernel.  Not counted in ``launches``."""
+  fields = (dens, u, v, p)
+  _check(fields)
+  return tuple(_staged(fields, dt, dx))
 
 
 ns_step_fused.launches = 0
+ns_step_fused.launches_by_kernel = {'smem': 0, 'staged': 0}

@@ -7,14 +7,15 @@ A posterior is ``{'flownet': {'mu': {...}, 'rho': {...}}, 'pressurenet':
 ...}``, where ``mu`` and ``rho`` map each parameter name of that PINN
 sub-module to a tensor.  A draw ``w = mu + softplus(rho) * eps`` is a flat
 ``{'flownet.<name>': tensor, ...}`` dict of the whole PINN, which
-``torch.func.functional_call`` runs.  Draws come from an explicit
+``torch.func.functional_call`` runs; :func:`sample_uvp` stacks the draws
+and runs them as one vmapped forward.  Draws come from an explicit
 ``torch.Generator``, or are handed in (``draws=``), as the tests hand in
 the JAX package's.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -87,23 +88,31 @@ def _draws(n: int, bparams: dict, generator: Optional[torch.Generator],
   return [sample_params(generator, bparams) for _ in range(n)]
 
 
+def stack_draws(draws: Sequence[Draw]) -> Draw:
+  """Draws stacked along a new leading dimension, name by name."""
+  return {name: torch.stack([d[name] for d in draws]) for name in draws[0]}
+
+
 def sample_uvp(model, bparams: dict, f1, f2, x, y, t, n: int = 64,
                size=None, generator: Optional[torch.Generator] = None,
                draws: Optional[Sequence[Draw]] = None) -> Tuple[Tensor, Tensor]:
-  """``n`` posterior draws of the PINN forward, one after another.
+  """``n`` posterior draws of the PINN forward, as one batched forward.
 
-  Returns (flows (n, B, H, W, 2), pressures (n, B, H, W, 1)).  Each draw
-  is one FlowNet forward, so ``n`` draws call the cost volume (kernel K3)
-  ``n`` times per pyramid level.
+  Returns (flows (n, B, H, W, 2), pressures (n, B, H, W, 1)).  The draws
+  (from ``generator``, in order, or handed in) are stacked and the PINN
+  runs once under ``torch.func.vmap`` over them, as the JAX package's
+  ``jax.vmap`` over the draws does: each convolution becomes one grouped
+  convolution over the draws, and each pyramid level's cost volume one
+  call at batch n * B (one launch of kernel K3 on the card).
   """
-  flows: List[Tensor] = []
-  press: List[Tensor] = []
-  for params in _draws(n, bparams, generator, draws):
-    flow, pres = functional_call(model, params, (f1, f2, x, y, t),
+  params = stack_draws(_draws(n, bparams, generator, draws))
+
+  def one(p):
+    flow, pres = functional_call(model, p, (f1, f2, x, y, t),
                                  {'size': size}, strict=True)
-    flows.append(flow[-1])
-    press.append(pres)
-  return torch.stack(flows), torch.stack(press)
+    return flow[-1], pres
+
+  return torch.func.vmap(one)(params)
 
 
 def predict(model, bparams: dict, f1, f2, x, y, t, dt: float, n: int = 64,

@@ -26,9 +26,14 @@ Run from the root of a checkout; it needs one CUDA card, ``nvcc`` and
    main path never calls; K1 is also summed per level of the U-Net;
 4. hold K3 (cost volume) and K4 (NS step) against their plain versions in
    f32 at every shape the ``ukf`` path launches them with (the five FlowNet
-   levels of ``pinn/pinn_pde`` at batch 1; the 129 sigma points and the
-   rollout's one image at 64x64) and at an odd shape, and time both as
-   in phase 3 (no single PyTorch call computes either function);
+   levels of ``pinn/pinn_pde`` with the 8 B-PINN draws folded into the
+   batch; the 129 sigma points and the rollout's one image at 64x64) and at
+   an odd shape, K3 also at batch 1, and time both as in phase 3, each
+   beside its first card design, the yardstick (K3: one block per image and
+   8x8 tile, csrc/correlation_tile.cu, also at batch 1 as the draws were
+   launched one by one; K4: three staged launches, csrc/ns_step_staged.cu);
+   K3 runs twice and must give the same bits (no single PyTorch call
+   computes either function);
 5. a full-width flagship forward with every parameter randomised: the
    kernel path against the plain path, in f32 and bf16, each timed on the
    host's clock and in device time;
@@ -44,15 +49,20 @@ Run from the root of a checkout; it needs one CUDA card, ``nvcc`` and
    filters of dimension 64, 8 B-PINN draws a cycle) for ``--cycles``
    cycles (default 10) with seeded random B-PINN parameters, the launch
    counts set to 0 before and read after; the counts must be those of the
-   design (K3: 5 levels x 8 draws a cycle; K4: one call a cycle with the
-   129 sigma points, plus the 63 steps of the 64-frame rollout), the final
+   design (K3: one launch per level a cycle, each at batch 8, the draws
+   vmapped; K4: one call a cycle with the 129 sigma points, plus the 63
+   steps of the 64-frame rollout, each the one-launch kernel), the final
    belief finite with a nonnegative sqrt-covariance diagonal, and the
-   filtered f-MSE below that of the noisy observation; then profile one
-   steady cycle (``torch.profiler``): host and device-busy seconds of the
-   measurement and of the filter, and their top device ops;
-8. print the kernel table as one JSON line, then the ``{"ok": true, ...}``
-   line.  With ``--out DIR`` the per-shape details go to
-   ``DIR/chip_smoke.json``.
+   filtered f-MSE below that of the noisy observation; then one steady
+   cycle's measurement two ways, with the draws vmapped (the port's) and
+   one ``functional_call`` after another (the structure before, kept here
+   as the yardstick), on the same draws: their outputs compared, their
+   host seconds, and each under ``torch.profiler`` (host and device-busy
+   seconds, idle share, device ops, top ops), and the filter profiled
+   likewise;
+8. print the kernel table as one JSON line (every kernel of the paths and
+   every yardstick beside it), then the ``{"ok": true, ...}`` line.  With
+   ``--out DIR`` the per-shape details go to ``DIR/chip_smoke.json``.
 
 Error limits (relative to max |reference|), in phases 3 to 5: f32 1e-4;
 bf16 3e-2, the bound tests/test_winograd.py holds bf16 Winograd to.
@@ -76,6 +86,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.autograd import DeviceType
+from torch.func import functional_call
 from torch.profiler import ProfilerActivity, profile
 
 from b_pinn_kalman_filter_tpu_torch import configs
@@ -282,7 +293,7 @@ def check_conv(shape, dtype, seed):
         lambda: k1.conv3x3(x, w, b), lambda: k1.conv3x3_plain(x, w, b),
         lambda: F.conv2d(x_lib, w_lib, b_lib, padding=1), prev))
     if prev is not None:
-      _, row['prev_rel_err'] = rel_err(prev(), want)
+      row['prev_abs_err'], row['prev_rel_err'] = rel_err(prev(), want)
   itemsize = x.element_size()
   flops = 2 * 9 * BATCH * H * W * cin * cout
   nbytes = (x.numel() + w.numel() + BATCH * H * W * cout) * itemsize + 4 * cout
@@ -311,7 +322,7 @@ def check_norm(shape, dtype, seed):
         lambda: k2.groupnorm_act(x, scale, bias, G, 'silu'),
         lambda: k2.groupnorm_act_plain(x, scale, bias, G, 'silu'),
         lambda: F.silu(F.group_norm(x_lib, G, s_lib, b_lib, 1e-6)), prev)
-    _, row['prev_rel_err'] = rel_err(prev(), want)
+    row['prev_abs_err'], row['prev_rel_err'] = rel_err(prev(), want)
   n = x.numel()
   nbytes = 2 * n * x.element_size() + 8 * C
   row['bound_ms'], row['bound_by'] = bound(10 * n, nbytes, dtype)
@@ -366,23 +377,31 @@ def kernel_phase(name, sites, check, seed):
     by[r['bound_by']] += r['bound_ms'] * r['per_forward']
   total['bound_by'] = by.most_common(1)[0][0]
   total['max_abs_err'] = max(r['max_abs_err'] for r in bf16)
-  return rows, total, dict(prev_ms=prev_total, call_ms=call_total,
-                           levels=levels), failures
+  prev_err = max(r.get('prev_abs_err', 0.0) for r in bf16)
+  return rows, total, dict(prev_ms=prev_total, prev_abs_err=prev_err,
+                           call_ms=call_total, levels=levels), failures
 
 
 def check_corr(shape, seed):
-  """K3 against its plain version at (B, H, W, C), f32."""
+  """K3 against its plain version at (B, H, W, C), f32, beside the tile
+  kernel (its first card design) in turns; K3 run twice for its bits."""
   B, H, W, C = shape
   g = torch.Generator(device='cuda').manual_seed(seed)
   f1 = torch.randn(shape, generator=g, device='cuda')
   f2 = torch.randn(shape, generator=g, device='cuda')
   with torch.inference_mode():
     got = k3.correlation(f1, f2)
+    again = k3.correlation(f1, f2)
+    tile = k3._correlation_tile(f1, f2)
     want = k3.correlation_plain(f1, f2)
     torch.cuda.synchronize()
     abs_err, rel = rel_err(got, want)
     row = timings(lambda: k3.correlation(f1, f2),
-                  lambda: k3.correlation_plain(f1, f2))
+                  lambda: k3.correlation_plain(f1, f2),
+                  prev=lambda: k3._correlation_tile(f1, f2))
+  row['prev_abs_err'], row['prev_rel_err'] = rel_err(tile, want)
+  row['same_bits_twice'] = bool(torch.equal(got, again))
+  row['plan'] = k3.correlation_plan(*shape)
   pixels = B * H * W
   row['bound_ms'], row['bound_by'] = bound(
       2 * 49 * C * pixels, 2 * pixels * C * 4 + 49 * pixels * 4,
@@ -391,9 +410,7 @@ def check_corr(shape, seed):
   return row
 
 
-def check_ns(shape, seed):
-  """K4 against its plain version at (B, H, W), f32; the error is the
-  largest over the four fields."""
+def ns_fields(shape, seed):
   B, H, W = shape
   g = torch.Generator(device='cuda').manual_seed(seed)
   d = torch.rand(shape, generator=g, device='cuda')
@@ -402,32 +419,50 @@ def check_ns(shape, seed):
   p = 0.05 * torch.randn(shape, generator=g, device='cuda')
   u[:, :H // 2, :W // 2] = 0      # a region at rest: sign(0) = +1
   v[:, :H // 2, :W // 2] = 0
-  args = (d, u, v, p, NS_DT, NS_DX)
+  return d, u, v, p
+
+
+def check_ns(shape, seed):
+  """K4 against its plain version at (B, H, W), f32, beside the staged
+  kernel (its first card design) in turns; the error is the largest over
+  the four fields."""
+  B, H, W = shape
+  args = ns_fields(shape, seed) + (NS_DT, NS_DX)
   with torch.inference_mode():
     got = k4.ns_step_fused(*args)
+    staged = k4._ns_step_staged(*args)
     want = k4.ns_step(*args)
     torch.cuda.synchronize()
     errs = [rel_err(a, b) for a, b in zip(got, want)]
-    row = timings(lambda: k4.ns_step_fused(*args),
-                  lambda: k4.ns_step(*args))
+    prev_errs = [rel_err(a, b) for a, b in zip(staged, want)]
+    row = timings(lambda: k4.ns_step_fused(*args), lambda: k4.ns_step(*args),
+                  prev=lambda: k4._ns_step_staged(*args))
+  row['plan'] = k4.ns_step_plan(B, H, W)
   pixels = B * H * W
   row['bound_ms'], row['bound_by'] = bound(NS_STEP_OPS * pixels,
                                            8 * pixels * 4, torch.float32)
   row.update(max_abs_err=max(e[0] for e in errs),
-             rel_err=max(e[1] for e in errs))
+             rel_err=max(e[1] for e in errs),
+             prev_abs_err=max(e[0] for e in prev_errs),
+             prev_rel_err=max(e[1] for e in prev_errs))
   return row
 
 
 def flow_kernel_phase(seed):
-  """K3 and K4 at the ukf path's shapes and an odd one, f32.  Returns
-  (rows, per-cycle totals, failures): a cycle runs K3 at each FlowNet
-  level once per draw and K4 once on the 129 sigma points."""
+  """K3 and K4 at the ukf path's shapes and an odd one, f32, each beside
+  its yardstick.  Returns (rows, per-cycle totals, failures): a cycle runs
+  K3 once per FlowNet level at batch 8 (the draws folded in) and K4 once
+  on the 129 sigma points.  The yardstick's totals are taken at the same
+  shapes (``prev_ms``) and, for K3, also as the draws were launched before
+  they were vmapped, 8 launches per level at batch 1 (``prev_ms_b1``)."""
   config = configs.get_config(UKF_CONFIG)
   size = config.data.image_size
   n = config.kf.patch_size ** 2
-  levels = [(1, size >> (i + 1), size >> (i + 1), c)
+  draws = ukf_lib.N_DRAWS
+  levels = [(size >> (i + 1), c)
             for i, c in enumerate(config.model.feature_nums)]
-  corr_shapes = ([(s, ukf_lib.N_DRAWS) for s in levels]
+  corr_shapes = ([((draws, h, h, c), 1) for h, c in levels]
+                 + [((1, h, h, c), 0) for h, c in levels]
                  + [((3, 13, 7, 3), 0)])
   ns_shapes = [((2 * n + 1, size, size), 1), ((1, size, size), 0),
                ((3, 13, 7), 0)]
@@ -440,22 +475,40 @@ def flow_kernel_phase(seed):
       row.update(kernel=name, shape=list(shape), dtype='float32',
                  per_cycle=per_cycle, tol=TOL[torch.float32])
       mine.append(row)
-      log(f'  {name} {shape} x{per_cycle:<2d} abs {row["max_abs_err"]:.3e} '
+      share = row['bound_ms'] / row['ms']
+      log(f'  {name} {shape} x{per_cycle} abs {row["max_abs_err"]:.3e} '
           f'rel {row["rel_err"]:.3e} | kernel {row["ms"]:.4f} ms (call '
-          f'{row["call_ms"]:.4f}) plain '
-          f'{row["plain_ms"]:.4f} bound {row["bound_ms"]:.6f} '
-          f'({row["bound_by"]})')
-      if not row['rel_err'] <= TOL[torch.float32]:
-        failures.append(f'{name} {shape}: rel error {row["rel_err"]:.3e}')
+          f'{row["call_ms"]:.4f}) yardstick {row["prev_ms"]:.4f} (rel '
+          f'{row["prev_rel_err"]:.1e}) plain {row["plain_ms"]:.4f} bound '
+          f'{row["bound_ms"]:.6f} ({row["bound_by"]}; '
+          + (f'{share:.3f} of the kernel time' if share <= 1 else
+             'kernel under the HBM bound: inputs from L2') + ')'
+          + (f' plan {row["plan"]}' if 'plan' in row else '')
+          + ('' if row.get('same_bits_twice', True) else ' NOT BITWISE'))
+      for key in ('rel_err', 'prev_rel_err'):
+        if not row[key] <= TOL[torch.float32]:
+          failures.append(f'{name} {shape}: {key} {row[key]:.3e}')
+      if not row.get('same_bits_twice', True):
+        failures.append(f'{name} {shape}: two runs differ')
     total = {k: sum(r[k] * r['per_cycle'] for r in mine)
-             for k in ('ms', 'plain_ms', 'bound_ms')}
+             for k in ('ms', 'plain_ms', 'bound_ms', 'prev_ms')}
     by = collections.Counter()
     for r in mine:
       by[r['bound_by']] += r['bound_ms'] * r['per_cycle']
     total.update(bound_by=by.most_common(1)[0][0], library_ms=None,
-                 max_abs_err=max(r['max_abs_err'] for r in mine))
+                 max_abs_err=max(r['max_abs_err'] for r in mine),
+                 prev_abs_err=max(r['prev_abs_err'] for r in mine))
+    if name == 'correlation':
+      total['prev_ms_b1'] = draws * sum(r['prev_ms'] for r in mine
+                                        if r['shape'][0] == 1)
     totals[name] = total
     rows += mine
+  c, k = totals['correlation'], totals['ns_step_fused']
+  log(f'  per cycle (device ms): K3 {c["ms"]:.4f} in {len(levels)} launches '
+      f'at batch {draws} vs tile kernel {c["prev_ms"]:.4f} at the same '
+      f'shapes and {c["prev_ms_b1"]:.4f} in {len(levels) * draws} launches '
+      f'at batch 1; bound {c["bound_ms"]:.6f}.  K4 {k["ms"]:.4f} vs staged '
+      f'{k["prev_ms"]:.4f}; bound {k["bound_ms"]:.6f}')
   return rows, totals, failures
 
 
@@ -465,15 +518,13 @@ def ukf_phase(cycles, out_dir):
   config = configs.get_config(UKF_CONFIG)
   levels = len(config.model.feature_nums)
   frames = max(cycles + 2, 64)
-  expected = {'correlation': levels * ukf_lib.N_DRAWS * cycles,
+  expected = {'correlation': levels * cycles,
               'ns_step_fused': cycles + frames - 1}
   failures = []
   seconds = []
   with tempfile.TemporaryDirectory() as tmp:
     workdir = os.path.join(out_dir, 'ukf') if out_dir else tmp
-    for kernel in (k1.conv3x3, k2.groupnorm_act, k3.correlation,
-                   k4.ns_step_fused):
-      kernel.launches = 0
+    reset_counts()
     torch.cuda.synchronize()
     start = time.time()
     mse = ukf_lib.run(config, workdir, n_steps=cycles, device='cuda',
@@ -484,6 +535,8 @@ def ukf_phase(cycles, out_dir):
                 'ns_step_fused': k4.ns_step_fused.launches,
                 'conv3x3': k1.conv3x3.launches,
                 'groupnorm_act': k2.groupnorm_act.launches}
+    corr_batches = dict(k3.correlation.batches)
+    ns_by_kernel = dict(k4.ns_step_fused.launches_by_kernel)
     preds, gts, obsvs = (np.load(os.path.join(workdir, f'ukf_{k}.npy'))
                          for k in ('preds', 'gts', 'obsvs'))
     belief = np.load(os.path.join(workdir, 'ukf_belief.npz'))
@@ -501,7 +554,9 @@ def ukf_phase(cycles, out_dir):
       steady_measurement_s=float(np.mean([s[0] for s in steady])),
       steady_filter_s=float(np.mean([s[1] for s in steady])),
       filters=list(mean.shape), min_sqrt_cov_diag=float(diag.min()),
-      launches=launches, expected_launches=expected)
+      launches=launches, expected_launches=expected,
+      correlation_launches_by_batch=corr_batches,
+      ns_step_launches_by_kernel=ns_by_kernel)
   log(f'  {cycles} cycles in {total_s:.2f} s (rollout, init and cycles); '
       f'steady cycle (cycles 2..{cycles}): measurement '
       f'{report["steady_measurement_s"]:.4f} s + filter '
@@ -509,7 +564,8 @@ def ukf_phase(cycles, out_dir):
   log(f'  f-MSE filtered {mse:.4e} vs noisy observation {obs_mse:.4e}; '
       f'beliefs {tuple(mean.shape)}, min sqrt-cov diagonal '
       f'{report["min_sqrt_cov_diag"]:.3e}')
-  log(f'  launches: {launches} (expected {expected})')
+  log(f'  launches: {launches} (expected {expected}); K3 launches by '
+      f'batch {corr_batches}, K4 by kernel {ns_by_kernel}')
   finite = bool(np.isfinite(mean).all() and np.isfinite(sqrt_cov).all()
                 and np.isfinite(preds).all())
   if not finite or diag.min() < 0:
@@ -521,7 +577,26 @@ def ukf_phase(cycles, out_dir):
   for name, n in expected.items():
     if launches[name] != n:
       failures.append(f'{name}: {launches[name]} launches, expected {n}')
+  if corr_batches != {ukf_lib.N_DRAWS: expected['correlation']}:
+    failures.append(f'correlation: launches by batch {corr_batches}, '
+                    f'expected all {expected["correlation"]} at '
+                    f'{ukf_lib.N_DRAWS}')
+  if ns_by_kernel != {'smem': expected['ns_step_fused'], 'staged': 0}:
+    failures.append(f'ns_step_fused: launches by kernel {ns_by_kernel}, '
+                    'expected every one the one-launch kernel')
   return report, launches, failures
+
+
+def reset_counts():
+  """Every kernel's launch counts to 0."""
+  for kernel in (k1.conv3x3, k2.groupnorm_act, k3.correlation,
+                 k4.ns_step_fused):
+    kernel.launches = 0
+  for counts in (k1.conv3x3.launches_by_kernel,
+                 k4.ns_step_fused.launches_by_kernel):
+    for key in counts:
+      counts[key] = 0
+  k3.correlation.batches.clear()
 
 
 def profiled(name, fn):
@@ -597,33 +672,83 @@ def sampler_profile_phase(config, model, seed):
   return out
 
 
+@torch.no_grad()
+def sequential_measure(kf, x, y, t, f, generator):
+  """``PINN_KF.measure`` with its draws run one ``functional_call`` after
+  another (8 FlowNet forwards, 40 cost volumes at batch 1), the structure
+  the port had before it vmapped them: the yardstick of the vmapped
+  measurement.  Draws come from ``generator`` in the same order."""
+  size = (kf.ukf.size, kf.ukf.size)
+  flows, press = [], []
+  for _ in range(ukf_lib.N_DRAWS):
+    params = bayes.sample_params(generator, kf.bparams)
+    flow, pres = functional_call(kf.model, params, (kf.f_prev, f, x, y, t),
+                                 {'size': size}, strict=True)
+    flows.append(flow[-1])
+    press.append(pres)
+  flows, press = torch.stack(flows), torch.stack(press)
+  return (flows.mean(0), flows.std(0, correction=0), press.mean(0),
+          press.std(0, correction=0))
+
+
 def ukf_profile_phase(seed):
-  """One steady ukf cycle (after a warm one) under ``torch.profiler``, the
-  measurement and the filter each in its own window (see ``profiled``)."""
+  """One steady ukf cycle (after a warm one): the measurement with the
+  draws vmapped and one after another (the same draws: the generator
+  reseeded for each), compared and timed in turns on the host's clock,
+  then each under ``torch.profiler``, and the filter likewise (see
+  ``profiled``).  Returns (report, failures)."""
   config = configs.get_config(UKF_CONFIG)
   size = config.data.image_size
   data = ns_rollout(3, size, size, config.seed, device='cuda')
   model, params = init_pinn(config, seed=0, device='cuda')
   kf = ukf_lib.PINN_KF(config, model, bayes.make_bpinn_params(
       params, config, pretrained=False))
-  generator = torch.Generator(device='cuda').manual_seed(seed)
 
   def prep(channel, idx):
     return data[idx, channel][None, :, :, None]
 
+  def gen():
+    return torch.Generator(device='cuda').manual_seed(seed)
+
   kf.initialize(prep(2, 0), torch.cat([prep(3, 0), prep(4, 0)], dim=-1),
                 prep(5, 0))
   t = torch.ones((1,), device='cuda')
-  parts = {'measurement': lambda i: kf.measure(prep(0, i), prep(1, i), t,
-                                               prep(2, i), generator),
-           'filter': lambda i, m: kf.filter(prep(2, i), m)}
-  parts['filter'](1, parts['measurement'](1))          # the warm cycle
-  out = {}
-  out['measurement'], measurement = profiled(
-      'measurement', lambda: parts['measurement'](2))
-  out['filter'], _ = profiled(
-      'filter', lambda: parts['filter'](2, measurement))
-  return out
+  inputs = (prep(0, 2), prep(1, 2), t, prep(2, 2))
+  ways = {'vmapped': lambda: kf.measure(*inputs, generator=gen()),
+          'sequential': lambda: sequential_measure(kf, *inputs, gen())}
+  kf.filter(prep(2, 1), kf.measure(prep(0, 1), prep(1, 1), t, prep(2, 1),
+                                   gen()))                # the warm cycle
+  out, failures = {}, []
+  results = {way: fn() for way, fn in ways.items()}       # warm both
+  errs = [rel_err(a, b) for a, b in zip(results['vmapped'],
+                                        results['sequential'])]
+  out['vmapped_vs_sequential_rel_err'] = [e[1] for e in errs]
+  log(f'  measurement, vmapped vs sequential (same draws), rel error of '
+      f'flow mean, flow std, pressure mean, pressure std: '
+      f'{[f"{e[1]:.2e}" for e in errs]}')
+  if not max(errs[0][1], errs[2][1]) <= TOL[torch.float32]:
+    failures.append(f'measurement: vmapped and sequential means differ '
+                    f'by {errs[0][1]:.3e}, {errs[2][1]:.3e}')
+  host = {way: [] for way in ways}
+  for _ in range(3):                                      # in turns
+    for way in ('vmapped', 'sequential', 'sequential', 'vmapped'):
+      torch.cuda.synchronize()
+      start = time.perf_counter()
+      ways[way]()
+      torch.cuda.synchronize()
+      host[way].append(time.perf_counter() - start)
+  for way in ways:
+    out[f'measurement_{way}_s'] = float(np.mean(host[way]))
+  log(f'  measurement seconds (host clock, mean of 6 each): vmapped '
+      f'{out["measurement_vmapped_s"]:.4f}, sequential '
+      f'{out["measurement_sequential_s"]:.4f}')
+  measurement = None
+  for way in ways:
+    out[f'measurement_{way}'], measurement = profiled(
+        f'measurement ({way} draws)', ways[way])
+  out['filter'], _ = profiled('filter', lambda: kf.filter(prep(2, 2),
+                                                          measurement))
+  return out, failures
 
 
 def forward_phase(seed):
@@ -695,10 +820,18 @@ def main():
   ptxas = _build.build_all()
   report['build_s'] = time.time() - t
   log(f'  built {sorted(ptxas)} in {report["build_s"]:.1f} s')
+  report['spill_bytes'] = {}
   for name, text in ptxas.items():
+    spills = 0
     for line in text.splitlines():
       if 'registers' in line or 'spill' in line:
         log(f'  {name}: {line.strip()}')
+      if 'spill stores' in line:
+        spills = max(spills, int(line.split('bytes spill stores')[0]
+                                 .split(',')[-1]))
+    report['spill_bytes'][name] = spills
+  log(f'  most spill-store bytes of any kernel, by source: '
+      f'{report["spill_bytes"]}')
   report['hgmma'] = hgmma_count()
   log(f'  HGMMA instructions in conv3x3_wgmma SASS: '
       f'{"SASS not inspected (no cuobjdump)" if report["hgmma"] is None else report["hgmma"]}')
@@ -736,11 +869,7 @@ def main():
   cut = '' if steps == 1000 else ' (cut from 1000)'
   log(f'[serve: {args.requests} requests, batch {BATCH}, N={steps}, '
       f'bf16{cut}]')
-  for kernel in (k1.conv3x3, k2.groupnorm_act, k3.correlation,
-                 k4.ns_step_fused):
-    kernel.launches = 0
-  k1.conv3x3.launches_by_kernel = dict.fromkeys(
-      k1.conv3x3.launches_by_kernel, 0)
+  reset_counts()
   requests = []
   for r in range(args.requests):
     torch.cuda.synchronize()
@@ -784,28 +913,45 @@ def main():
       f'{ukf_lib.N_DRAWS} draws a cycle, f32]')
   report['ukf'], ukf_launches, f5 = ukf_phase(args.cycles, args.out)
   failures += f5
-  log('[ukf: one steady cycle under torch.profiler]')
-  report['ukf_profile'] = ukf_profile_phase(args.seed)
+  log('[ukf: one steady cycle, the measurement vmapped and sequential]')
+  report['ukf_profile'], f6 = ukf_profile_phase(args.seed)
+  failures += f6
 
+  def entry(name, source, replaces, launches, total, yardstick=False):
+    """One kernel's row of the table; a yardstick's numbers are its
+    ``prev_*`` ones from the same rows, its launches those of the main
+    path (none)."""
+    row = dict(name=name, route='cuda',
+               source=f'b_pinn_kalman_filter_tpu_torch/csrc/{source}',
+               replaces=f'b_pinn_kalman_filter_tpu/ops/{replaces}',
+               launches=launches)
+    row.update({k: total[k] for k in ('max_abs_err', 'ms', 'plain_ms',
+                                      'bound_ms', 'bound_by', 'library_ms')})
+    if yardstick:
+      row.update(max_abs_err=total['prev_abs_err'], ms=total['prev_ms'])
+    return row
+
+  conv_all = dict(conv_total, **conv_more)
+  norm_all = dict(norm_total, **norm_more)
+  corr, ns = flow_totals['correlation'], flow_totals['ns_step_fused']
   table = {'kernels': [
-      dict(name='conv3x3', route='cuda',
-           source='b_pinn_kalman_filter_tpu_torch/csrc/conv3x3_wgmma.cu',
-           replaces='b_pinn_kalman_filter_tpu/ops/winograd_pallas.py:159',
-           launches=launches['conv3x3'], **conv_total),
-      dict(name='groupnorm_act', route='cuda',
-           source='b_pinn_kalman_filter_tpu_torch/csrc/groupnorm.cu',
-           replaces='b_pinn_kalman_filter_tpu/ops/groupnorm_pallas.py:118',
-           launches=launches['groupnorm_act'], **norm_total),
-      dict(name='correlation', route='cuda',
-           source='b_pinn_kalman_filter_tpu_torch/csrc/correlation.cu',
-           replaces='b_pinn_kalman_filter_tpu/ops/correlation_pallas.py:42',
-           launches=ukf_launches['correlation'],
-           **flow_totals['correlation']),
-      dict(name='ns_step_fused', route='cuda',
-           source='b_pinn_kalman_filter_tpu_torch/csrc/ns_step.cu',
-           replaces='b_pinn_kalman_filter_tpu/ops/ns_step_pallas.py:63',
-           launches=ukf_launches['ns_step_fused'],
-           **flow_totals['ns_step_fused']),
+      entry('conv3x3', 'conv3x3_wgmma.cu', 'winograd_pallas.py:159',
+            by_kernel['wgmma'], conv_all),
+      entry('conv3x3_direct', 'conv3x3.cu', 'winograd_pallas.py:159',
+            by_kernel['direct'], conv_all, yardstick=True),
+      entry('groupnorm_act', 'groupnorm.cu', 'groupnorm_pallas.py:118',
+            launches['groupnorm_act'], norm_all),
+      entry('groupnorm_act_pergroup', 'groupnorm_pergroup.cu',
+            'groupnorm_pallas.py:118', 0, norm_all, yardstick=True),
+      entry('correlation', 'correlation.cu', 'correlation_pallas.py:42',
+            ukf_launches['correlation'], corr),
+      entry('correlation_tile', 'correlation_tile.cu',
+            'correlation_pallas.py:42', 0, corr, yardstick=True),
+      entry('ns_step_fused', 'ns_step.cu', 'ns_step_pallas.py:63',
+            report['ukf']['ns_step_launches_by_kernel']['smem'], ns),
+      entry('ns_step_staged', 'ns_step_staged.cu', 'ns_step_pallas.py:63',
+            report['ukf']['ns_step_launches_by_kernel']['staged'], ns,
+            yardstick=True),
   ]}
   report['table'] = table
   report['seconds'] = time.time() - t_start
@@ -815,9 +961,9 @@ def main():
       json.dump(report, f, indent=1)
   log(f'total {report["seconds"]:.1f} s; kernel-table times (device ms): '
       'K1, K2 per U-Net forward (sum over the sites of one forward, bf16), '
-      'K3, K4 per '
-      'ukf cycle (f32); launches from the sampler (K1, K2) and the ukf run '
-      '(K3, K4)')
+      'K3, K4 per ukf cycle (f32), each yardstick (the first card design) '
+      'at the same shapes; launches from the sampler (K1, K2) and the ukf '
+      'run (K3, K4)')
   if failures:
     for failure in failures:
       print(f'FAILED: {failure}', file=sys.stderr)

@@ -68,3 +68,37 @@ def test_wrapper_refuses_gradients_and_other_devices():
   m = torch.empty((1, 4, 4, 3), device='meta')
   with pytest.raises(ValueError, match='no kernel for device'):
     k3.correlation(m, m)
+
+
+@pytest.mark.parametrize('case', ['both mapped', 'f2 unmapped', 'nested'])
+def test_vmap_rule_folds_the_stack_into_one_call(case, monkeypatch):
+  """``torch.func.vmap`` over a stack of three (B, H, W, C) inputs runs the
+  cost volume once, at batch 3B, and equals both the per-draw loop and the
+  JAX correlation of the stacked batch."""
+  f1, f2 = _features((3, 2, 6, 5, 4), seed=3)
+  if case == 'f2 unmapped':
+    f2 = np.broadcast_to(f2[:1], f2.shape).copy()
+  calls = []
+  plain = k3.correlation_plain
+
+  def spy(a, b, stride=1):
+    calls.append(tuple(a.shape))
+    return plain(a, b, stride)
+
+  t1, t2 = torch.from_numpy(f1), torch.from_numpy(f2)
+  with torch.inference_mode():
+    loop = torch.stack([k3.correlation(a, b) for a, b in zip(t1, t2)])
+    monkeypatch.setattr(k3, 'correlation_plain', spy)
+    if case == 'both mapped':
+      got = torch.func.vmap(k3.correlation)(t1, t2)
+    elif case == 'f2 unmapped':
+      got = torch.func.vmap(k3.correlation, in_dims=(0, None))(t1, t2[0])
+    else:   # a vmap inside a vmap folds both levels into the batch
+      got = torch.func.vmap(torch.func.vmap(k3.correlation))(
+          t1[:, :, None], t2[:, :, None])[:, :, 0]
+  assert calls == [(6, 6, 5, 4)]
+  assert got.shape == (3, 2, 6, 5, 49)
+  assert (got - loop).abs().max() <= TOL * loop.abs().max()
+  want = jax_corr(jnp.asarray(f1.reshape(6, 6, 5, 4)),
+                  jnp.asarray(f2.reshape(6, 6, 5, 4)), 1)
+  _close(got.reshape(6, 6, 5, 49), want)

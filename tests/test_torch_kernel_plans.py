@@ -1,8 +1,12 @@
 """The port's kernel plans: which K1 kernel a conv takes, its pixel boxes and
-split-K, and K2's cluster.  Pure Python (no JAX, no compiler, no card).
+split-K, K2's cluster, K3's tiles and channel split, and which K4 kernel
+an image takes.  Pure Python (no JAX, no compiler, no card).
 
-The site shapes are those of the flagship U-Net (``vp/cifar10_ddpmpp_continuous``,
-batch 8), counted from ``models/ddpm.py``: 79 K1 sites and 76 K2 sites.
+The K1/K2 site shapes are those of the flagship U-Net
+(``vp/cifar10_ddpmpp_continuous``, batch 8), counted from
+``models/ddpm.py``: 79 K1 sites and 76 K2 sites.  The K3 shapes are the
+five FlowNet levels of ``pinn/pinn_pde`` with its 8 B-PINN draws folded
+into the batch; K4's image is the UKF's 64x64.
 """
 
 import math
@@ -12,7 +16,9 @@ import pytest
 import torch
 
 from b_pinn_kalman_filter_tpu_torch.ops import conv3x3 as k1
+from b_pinn_kalman_filter_tpu_torch.ops import correlation as k3
 from b_pinn_kalman_filter_tpu_torch.ops import groupnorm as k2
+from b_pinn_kalman_filter_tpu_torch.ops import ns_step as k4
 
 BATCH = 8
 # (H, Cin, Cout): number of sites per forward.
@@ -141,3 +147,80 @@ def test_groupnorm_plan_edges(shape, itemsize, want):
   assert (plan['cluster'], plan['vec'], plan['on_chip']) == want
   H, W = shape[:2]
   assert plan['cluster'] <= H * W
+
+
+# (B, H, W, C) of the cost volume on the ukf path: 8 draws x batch 1.
+CORR_LEVELS = [(8, 32, 32, 16), (8, 16, 16, 32), (8, 8, 8, 64), (8, 4, 4, 96),
+               (8, 2, 2, 128)]
+CORR_ODD = [(3, 13, 7, 3), (1, 1, 1, 1), (2, 5, 9, 1), (2, 11, 19, 40),
+            (1, 5, 130, 8), (129, 64, 64, 8), (1, 32, 32, 16), (2, 37, 6, 12)]
+
+
+@pytest.mark.parametrize('shape', CORR_LEVELS + CORR_ODD)
+def test_correlation_tiles_cover_the_image_and_no_more(shape):
+  B, H, W, C = shape
+  plan = k3.correlation_plan(*shape)
+  th, tw, strip = plan['th'], plan['tw'], plan['strip']
+  # Tiles divide the image, so no block computes a pixel outside it.
+  assert H % th == 0 and W % tw == 0 and tw % strip == 0
+  seen = np.zeros((H, W), dtype=int)
+  for y0 in range(0, H, th):
+    for x0 in range(0, W, tw):
+      seen[y0:y0 + th, x0:x0 + tw] += 1
+  assert (seen == 1).all()
+  assert plan['tiles'] == (H // th) * (W // tw)
+  assert plan['threads'] == 7 * th * (tw // strip) <= k3.MAX_THREADS
+  assert plan['blocks'] == B * plan['tiles'] * plan['split']
+  assert plan['smem_bytes'] <= k3.SMEM_LIMIT
+  # 16-byte shared loads per FMA: (2 strip + 6) per 4 channels x 7 strip.
+  assert (2 * strip + 6) / (28 * strip) <= 0.5
+  assert plan['vec'] == int(C % 4 == 0)
+
+
+@pytest.mark.parametrize('shape', CORR_LEVELS + CORR_ODD)
+def test_correlation_split_covers_every_channel_once(shape):
+  B, H, W, C = shape
+  plan = k3.correlation_plan(*shape)
+  split, cs = plan['split'], plan['cs']
+  assert split in (1, 2, 4, 8)
+  owner = np.zeros(C, dtype=int)
+  for rank in range(split):
+    lo, hi = rank * cs, min(C, (rank + 1) * cs)
+    assert lo < hi                       # no rank without channels
+    owner[lo:hi] += 1
+  assert (owner == 1).all()
+  if split > 1:                          # 16-byte vectors, 2 at least
+    assert cs % 4 == 0 and cs >= k3.MIN_RANK_CHANNELS
+  assert plan['stages'] == (2 if cs > k3.CHUNK else 1)
+
+
+def test_correlation_plan_on_the_ukf_path():
+  """Every folded level fills half the card or more: the small levels by
+  splitting their channels over clusters."""
+  got = [(k3.correlation_plan(*s)['strip'], k3.correlation_plan(*s)['split'],
+          k3.correlation_plan(*s)['blocks']) for s in CORR_LEVELS]
+  assert got == [(4, 1, 64), (4, 2, 64), (2, 4, 64), (1, 8, 64), (1, 8, 64)]
+
+
+@pytest.mark.parametrize('shape,want', [
+    ((129, 64, 64), ('smem', 1)),     # the UKF's 129 sigma points: one wave
+    ((1, 64, 64), ('smem', 8)),       # the rollout's image over 8 SMs
+    ((33, 64, 64), ('smem', 4)),
+    ((3, 13, 7), ('smem', 1)),        # odd H: no split
+    ((2, 2, 2), ('smem', 2)),         # a row a block
+    ((1, 76, 76), ('smem', 4)),       # the largest square one block holds
+    ((1, 77, 77), ('staged', 1)),
+    ((2, 128, 128), ('staged', 1)),
+])
+def test_ns_step_plan_keeps_an_image_on_chip_where_it_fits(shape, want):
+  B, H, W = shape
+  plan = k4.ns_step_plan(*shape)
+  assert (plan['kernel'], plan['cluster']) == want
+  image = k4.SMEM_FIELDS * H * W * 4
+  assert (image <= k4.SMEM_LIMIT) == (plan['kernel'] == 'smem')
+  if plan['kernel'] == 'smem':
+    cluster = plan['cluster']
+    assert H % cluster == 0 and B * cluster <= max(k4.NUM_SMS, B)
+    assert plan['smem_bytes'] == image // cluster <= k4.SMEM_LIMIT
+    assert plan['vec'] == int(cluster == 1 and H * W % 4 == 0
+                              and H * W >= 4 * k4.THREADS)

@@ -160,21 +160,64 @@ def _rel_each(got, want):
 
 @pytest.mark.parametrize('shape', [
     (1, 32, 32, 16), (1, 16, 16, 32), (1, 8, 8, 64), (1, 4, 4, 96),
-    (1, 2, 2, 128),            # the five FlowNet levels at 64x64
-    (8, 32, 32, 16),           # the draws folded into the batch
-    (3, 13, 7, 3),             # odd H and W, ragged tiles and channels
-    (2, 11, 19, 40),           # a ragged second channel chunk
+    (1, 2, 2, 128),            # the five FlowNet levels at 64x64, one draw
+    (8, 32, 32, 16), (8, 16, 16, 32), (8, 8, 8, 64), (8, 4, 4, 96),
+    (8, 2, 2, 128),            # the same with the 8 draws folded in
+    (3, 13, 7, 3),             # odd H and W, C = 3: 4-byte copies
+    (2, 11, 19, 40),           # two channel chunks: double-buffered
     (2, 5, 9, 1),              # C = 1
 ])
 def test_correlation_matches_plain(card, shape):
   f1 = torch.randn(shape, generator=card, device='cuda')
   f2 = torch.randn(shape, generator=card, device='cuda')
   before = k3.correlation.launches
+  batches = k3.correlation.batches.copy()
   with torch.inference_mode():
     got = k3.correlation(f1, f2)
     want = k3.correlation_plain(f1, f2)
   assert k3.correlation.launches == before + 1
+  assert k3.correlation.batches - batches == {shape[0]: 1}
   assert got.shape == want.shape == shape[:3] + (49,)
+  assert _rel(got, want) <= TOL[torch.float32]
+
+
+@pytest.mark.parametrize('shape', [(8, 32, 32, 16), (8, 8, 8, 64),
+                                   (8, 4, 4, 96), (8, 2, 2, 128)])
+def test_correlation_is_deterministic(card, shape):
+  # The cluster split sums its partials in rank order: the same bits.
+  f1 = torch.randn(shape, generator=card, device='cuda')
+  f2 = torch.randn(shape, generator=card, device='cuda')
+  with torch.inference_mode():
+    first = k3.correlation(f1, f2)
+    again = k3.correlation(f1, f2)
+  assert torch.equal(first, again)
+
+
+def test_correlation_vmap_is_one_launch(card):
+  # Three stacked draws of a (2, 16, 16, 32) level: one launch at batch 6.
+  f1 = torch.randn((3, 2, 16, 16, 32), generator=card, device='cuda')
+  f2 = torch.randn((3, 2, 16, 16, 32), generator=card, device='cuda')
+  before = k3.correlation.launches
+  batches = k3.correlation.batches.copy()
+  with torch.inference_mode():
+    got = torch.func.vmap(k3.correlation)(f1, f2)
+    assert k3.correlation.launches == before + 1
+    assert k3.correlation.batches - batches == {6: 1}
+    want = torch.stack([k3.correlation_plain(a, b) for a, b in zip(f1, f2)])
+  assert got.shape == want.shape
+  assert _rel(got, want) <= TOL[torch.float32]
+
+
+@pytest.mark.parametrize('shape', [(1, 32, 32, 16), (8, 4, 4, 96),
+                                   (3, 13, 7, 3)])
+def test_correlation_tile_yardstick_matches_plain(card, shape):
+  f1 = torch.randn(shape, generator=card, device='cuda')
+  f2 = torch.randn(shape, generator=card, device='cuda')
+  before = k3.correlation.launches
+  with torch.inference_mode():
+    got = k3._correlation_tile(f1, f2)
+    want = k3.correlation_plain(f1, f2)
+  assert k3.correlation.launches == before
   assert _rel(got, want) <= TOL[torch.float32]
 
 
@@ -187,9 +230,7 @@ def test_correlation_stride_2_stays_plain(card):
   assert torch.equal(got, k3.correlation_plain(f1, f1, stride=2))
 
 
-@pytest.mark.parametrize('shape', [(129, 64, 64), (1, 64, 64), (3, 13, 7),
-                                   (2, 2, 2)])
-def test_ns_step_matches_plain(card, shape):
+def _ns_fields(card, shape):
   d = torch.rand(shape, generator=card, device='cuda')
   u = 0.2 * torch.randn(shape, generator=card, device='cuda')
   v = 0.2 * torch.randn(shape, generator=card, device='cuda')
@@ -197,13 +238,43 @@ def test_ns_step_matches_plain(card, shape):
   # A region at rest: u = v = 0 takes the upwind side of sign(0) = +1.
   u[:, : shape[1] // 2, : shape[2] // 2] = 0
   v[:, : shape[1] // 2, : shape[2] // 2] = 0
+  return d, u, v, p
+
+
+@pytest.mark.parametrize('shape', [
+    (129, 64, 64),             # the UKF's sigma points: a block an image
+    (1, 64, 64),               # the rollout: an image over a cluster of 8
+    (33, 64, 64),              # clusters of 4
+    (3, 13, 7), (2, 2, 2),     # odd sizes; a row a block
+    (2, 128, 128),             # past shared memory: the staged kernel
+])
+def test_ns_step_matches_plain(card, shape):
+  d, u, v, p = _ns_fields(card, shape)
+  which = k4.ns_step_plan(*shape)['kernel']
+  assert which == ('staged' if shape[1] == 128 else 'smem')
   before = k4.ns_step_fused.launches
+  by_kernel = dict(k4.ns_step_fused.launches_by_kernel)
   with torch.inference_mode():
     got = k4.ns_step_fused(d, u, v, p, 0.0025, 1 / 200)
     want = k4.ns_step(d, u, v, p, 0.0025, 1 / 200)
   assert k4.ns_step_fused.launches == before + 1
+  assert k4.ns_step_fused.launches_by_kernel == {
+      k: n + (k == which) for k, n in by_kernel.items()}
   assert all(g.shape == w.shape for g, w in zip(got, want))
   assert _rel_each(got, want) <= TOL[torch.float32]
+
+
+@pytest.mark.parametrize('shape', [(129, 64, 64), (1, 64, 64), (3, 13, 7)])
+def test_ns_step_one_launch_agrees_with_staged(card, shape):
+  d, u, v, p = _ns_fields(card, shape)
+  before = k4.ns_step_fused.launches
+  with torch.inference_mode():
+    staged = k4._ns_step_staged(d, u, v, p, 0.0025, 1 / 200)
+    assert k4.ns_step_fused.launches == before
+    got = k4.ns_step_fused(d, u, v, p, 0.0025, 1 / 200)
+    want = k4.ns_step(d, u, v, p, 0.0025, 1 / 200)
+  assert _rel_each(staged, want) <= TOL[torch.float32]
+  assert _rel_each(got, staged) <= TOL[torch.float32]
 
 
 def test_flow_kernels_refuse_what_they_do_not_take(card):

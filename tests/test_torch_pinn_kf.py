@@ -161,6 +161,35 @@ def test_measurement_and_predict_match_jax(slice_pair):
     assert _rel(g, w) <= 1e-4
 
 
+def test_vmapped_draws_equal_a_per_draw_loop(slice_pair):
+  """``bayes.sample_uvp`` runs its draws as one vmapped forward; the same
+  draws one ``functional_call`` at a time give the same flows and
+  pressures (1e-5 relative: the vmapped convolutions are grouped ones,
+  summed in another order), and a generator gives the draws it would
+  hand in."""
+  s = slice_pair
+  model = s['port_model']
+  args = tuple(map(_t, port_parity.pinn_inputs(seed=7)))
+  draws = [bayes.sample_params(torch.Generator().manual_seed(11),
+                               s['port_bparams'])]
+  draws += [bayes.sample_params(torch.Generator().manual_seed(12 + i),
+                                s['port_bparams']) for i in range(2)]
+  with torch.inference_mode():
+    flows, press = bayes.sample_uvp(model, s['port_bparams'], *args, n=3,
+                                    size=(16, 16), draws=draws)
+    loop = [torch.func.functional_call(model, d, args, {'size': (16, 16)})
+            for d in draws]
+    again, _ = bayes.sample_uvp(model, s['port_bparams'], *args, n=1,
+                                size=(16, 16),
+                                generator=torch.Generator().manual_seed(11))
+  assert flows.shape == (3, 1, 16, 16, 2) and press.shape == (3, 1, 16, 16, 1)
+  want_flows = torch.stack([out[0][-1] for out in loop])
+  want_press = torch.stack([out[1] for out in loop])
+  for got, want in ((flows, want_flows), (press, want_press)):
+    assert _rel(got, want.numpy()) <= 1e-5
+  assert _rel(again, flows[:1].numpy()) <= 1e-5
+
+
 def test_own_draws_are_seeded_and_differ_per_draw(slice_pair):
   s = slice_pair
   draw = lambda seed: bayes.sample_params(torch.Generator().manual_seed(seed),
