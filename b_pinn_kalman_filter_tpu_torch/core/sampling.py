@@ -15,7 +15,7 @@ feed in the numbers another implementation drew.
 
 from __future__ import annotations
 
-from typing import Callable, Iterable, Optional, Sequence
+from typing import Callable, Dict, Iterable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -108,7 +108,8 @@ def none_corrector(x, t, sde, score_fn, snr, n_steps, draw):
 def get_sampling_fn(config, sde, model, shape, inverse_scaler, eps,
                     device=None) -> Callable:
   """Build a sampling function from config:
-  ``sampling_fn(generator=None, noise=None) -> (samples, nfe)``."""
+  ``sampling_fn(generator=None, noise=None, params=None) -> (samples,
+  nfe)``."""
   sampler_name = config.sampling.method.lower()
   if sampler_name == 'ode':
     raise NotImplementedError(
@@ -181,16 +182,19 @@ def get_pc_sampler(sde, model, shape, predictor, corrector, inverse_scaler,
                    continuous: bool = False, denoise: bool = True,
                    eps: float = 1e-3, device=None) -> Callable:
   """Predictor–corrector sampler for a score model:
-  ``fn(generator=None, noise=None) -> (samples, nfe)``."""
+  ``fn(generator=None, noise=None, params=None) -> (samples, nfe)``;
+  ``params`` (``{flax name: tensor}``, e.g. a train state's EMA) replace
+  the model's own for that call."""
   core = get_pc_sampler_from_score(
       sde, shape, predictor, corrector, inverse_scaler, snr,
       n_steps=n_steps, probability_flow=probability_flow,
       denoise=denoise, eps=eps, device=device)
-  score_fn = mutils.get_score_fn(sde, model, train=False,
-                                 continuous=continuous)
 
   def pc_sampler(generator: Optional[torch.Generator] = None,
-                 noise: Optional[Iterable[torch.Tensor]] = None):
+                 noise: Optional[Iterable[torch.Tensor]] = None,
+                 params: Optional[Dict[str, torch.Tensor]] = None):
+    score_fn = mutils.get_score_fn(sde, model, train=False,
+                                   continuous=continuous, params=params)
     return core(score_fn, generator=generator, noise=noise)
 
   return pc_sampler

@@ -1,4 +1,4 @@
-"""Load the JAX package's flax ``params`` into the port's modules.
+"""Load the JAX package's flax ``params`` and train states into the port.
 
 The port's layers keep the flax names and layouts (conv ``kernel`` HWIO,
 ``Dense`` ``kernel`` (in, out), ``NIN`` ``W`` (in, out), GroupNorm
@@ -15,6 +15,8 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 import torch.nn as nn
+
+from b_pinn_kalman_filter_tpu_torch.train.state import AdamState, TrainState
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str = '') -> Dict[str, Any]:
@@ -87,3 +89,59 @@ def bpinn_params_from_jax(tree: Mapping[str, Any], model: nn.Module) -> dict:
                                         f'{key}.{part}: ')
                 for part in ('mu', 'rho')}
   return out
+
+
+def _adam_parts(opt_state):
+  """The ``ScaleByAdamState`` (``mu``, ``nu``, ``count``) inside an optax
+  chain's state, found by its fields (the port imports no optax)."""
+  if all(hasattr(opt_state, k) for k in ('mu', 'nu', 'count')):
+    return opt_state
+  if isinstance(opt_state, (tuple, list)):
+    found = [s for s in map(_adam_parts, opt_state) if s is not None]
+    if len(found) > 1:
+      raise ValueError('more than one Adam state in the optimizer state')
+    return found[0] if found else None
+  return None
+
+
+def train_state_from_jax(jax_state, model: nn.Module) -> TrainState:
+  """A JAX package ``TrainState`` (params, the optax Adam moments and
+  count, the EMA, the step) as the port's ``train.state.TrainState`` over
+  ``model``'s parameter names, on their devices."""
+  params = dict(model.named_parameters())
+  adam = _adam_parts(jax_state.opt_state)
+  if adam is None:
+    raise ValueError('no Adam state (mu, nu, count) in the optimizer state')
+  trees = {what: _tensors_from_jax(tree, params, f'{what}: ')
+           for what, tree in (('params', jax_state.params), ('mu', adam.mu),
+                              ('nu', adam.nu),
+                              ('ema_params', jax_state.ema_params))}
+  return TrainState(step=int(np.asarray(jax_state.step)),
+                    params={k: v.requires_grad_()
+                            for k, v in trees['params'].items()},
+                    opt_state=AdamState(count=int(np.asarray(adam.count)),
+                                        mu=trees['mu'], nu=trees['nu']),
+                    ema_params=trees['ema_params'],
+                    ema_rate=float(jax_state.ema_rate))
+
+
+def _unflatten(flat: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+  tree: Dict[str, Any] = {}
+  for name, value in flat.items():
+    *path, leaf = name.split('.')
+    node = tree
+    for key in path:
+      node = node.setdefault(key, {})
+    node[leaf] = value.detach().cpu().numpy().copy()   # not a view
+  return tree
+
+
+def train_state_to_jax(state) -> Dict[str, Any]:
+  """A copy of the port's train state as the JAX package's trees of numpy
+  arrays: ``{step, params, mu, nu, count, ema_params}``, each tree nested
+  by the flax path."""
+  return dict(step=state.step, params=_unflatten(state.params),
+              mu=_unflatten(state.opt_state.mu),
+              nu=_unflatten(state.opt_state.nu),
+              count=state.opt_state.count,
+              ema_params=_unflatten(state.ema_params))

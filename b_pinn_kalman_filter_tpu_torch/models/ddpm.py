@@ -115,7 +115,8 @@ class DDPM(nn.Module):
           registry.get_sigmas(config), dtype=torch.float32),
           persistent=False)
 
-  def forward(self, x, labels, train=True):
+  def forward(self, x, labels, train=True, generator=None):
+    """``generator`` feeds the resblocks' dropout when ``train``."""
     config = self.config
     temb = None
     if config.model.conditional:
@@ -129,7 +130,7 @@ class DDPM(nn.Module):
     hs = [self.Conv3x3_0(h)]
     for blocks, down in self.down:
       for block, attn in blocks:
-        h = block(hs[-1], temb, train)
+        h = block(hs[-1], temb, train, generator)
         if attn is not None:
           h = attn(h)
         hs.append(h)
@@ -137,13 +138,14 @@ class DDPM(nn.Module):
         hs.append(down(hs[-1]))
 
     h = hs[-1]
-    h = self.mid[0](h, temb, train)
+    h = self.mid[0](h, temb, train, generator)
     h = self.mid[1](h)
-    h = self.mid[2](h, temb, train)
+    h = self.mid[2](h, temb, train, generator)
 
     for blocks, attn, up in self.up:
       for block in blocks:
-        h = block(torch.cat([h, hs.pop()], dim=-1), temb, train)
+        h = block(torch.cat([h, hs.pop()], dim=-1), temb, train,
+                  generator)
       if attn is not None:
         h = attn(h)
       if up is not None:

@@ -325,11 +325,27 @@ class Downsample(nn.Module):
     return x
 
 
+def dropout(x: Tensor, rate: float, generator: Optional[torch.Generator]
+            ) -> Tensor:
+  """flax ``nn.Dropout`` in training: each element kept with probability
+  1 - ``rate`` and then scaled by 1 / (1 - ``rate``), the mask drawn from
+  ``generator`` (never from torch's global generator).  Rate 0 is the
+  identity, as in flax."""
+  if rate == 0.0:
+    return x
+  if generator is None:
+    raise ValueError('dropout in training needs a torch.Generator')
+  keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+  return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
+                                                         device=x.device))
+
+
 class ResnetBlockDDPM(nn.Module):
   """DDPM ResNet block: two GroupNorm+act / 3x3 conv pairs, both kernel
   sites, the timestep projection between them, and a NIN shortcut when the
-  width changes.  (The JAX block's ``conv_shortcut`` option is never set by
-  the DDPM and is not ported.)"""
+  width changes.  In training the dropout between them draws its mask from
+  ``generator`` (:func:`dropout`).  (The JAX block's ``conv_shortcut``
+  option is never set by the DDPM and is not ported.)"""
 
   def __init__(self, act: Callable, in_ch: int, out_ch: Optional[int] = None,
                temb_dim: Optional[int] = None, dropout: float = 0.1,
@@ -348,13 +364,14 @@ class ResnetBlockDDPM(nn.Module):
     if in_ch != out_ch:
       self.NIN_0 = NIN(in_ch, out_ch, dtype=dtype)
 
-  def forward(self, x, temb=None, train=True):
+  def forward(self, x, temb=None, train=True, generator=None):
     h = self.GroupNorm_0(x)
     h = self.Conv3x3_0(h)
     if temb is not None:
       h = h + self.Dense_0(self.act(temb))[:, None, None, :]
     h = self.GroupNorm_1(h)
-    h = F.dropout(h, self.dropout, training=train)
+    if train:
+      h = dropout(h, self.dropout, generator)
     h = self.Conv3x3_1(h)
     if hasattr(self, 'NIN_0'):
       x = self.NIN_0(x)

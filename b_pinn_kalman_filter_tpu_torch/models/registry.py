@@ -2,16 +2,21 @@
 
 Counterpart of the JAX package's ``models/registry.py``.  A torch module
 holds its own parameters, so ``get_model_fn`` and ``get_score_fn`` take the
-model where the JAX functions take ``(model, params)``.
+model where the JAX functions take ``(model, params)``, and take
+``params``, a ``{flax name: tensor}`` dict, only to run the module under
+other parameters (the train state's or its EMA) through
+``torch.func.functional_call``.  ``train`` is an explicit flag, as in JAX,
+not the module's mode.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 import torch.nn as nn
+from torch.func import functional_call
 
 from b_pinn_kalman_filter_tpu_torch.core import sde as sde_lib
 from b_pinn_kalman_filter_tpu_torch.core.sde import batch_mul
@@ -58,43 +63,53 @@ def create_model(config, *, device=None, seed: Optional[int] = None,
   return model.to(device).eval()
 
 
-def get_model_fn(model: nn.Module, train: bool = False) -> Callable:
-  """``model_fn(x, labels)``: the raw model in train or eval mode."""
+def get_model_fn(model: nn.Module, train: bool = False,
+                 params: Optional[Dict[str, torch.Tensor]] = None
+                 ) -> Callable:
+  """``model_fn(x, labels, generator=None)``: the raw model in train or
+  eval mode, under ``params`` when given; ``generator`` feeds dropout in
+  train mode."""
 
-  def model_fn(x, labels):
-    return model(x, labels, train=train)
+  def model_fn(x, labels, generator=None):
+    kwargs = dict(train=train, generator=generator)
+    if params is None:
+      return model(x, labels, **kwargs)
+    return functional_call(model, params, (x, labels), kwargs)
 
   return model_fn
 
 
 def get_score_fn(sde, model: nn.Module, train: bool = False,
-                 continuous: bool = False) -> Callable:
-  """Adapt model output to a true score function ``score_fn(x, t)``."""
-  model_fn = get_model_fn(model, train=train)
+                 continuous: bool = False,
+                 params: Optional[Dict[str, torch.Tensor]] = None
+                 ) -> Callable:
+  """Adapt model output to a true score function
+  ``score_fn(x, t, generator=None)``."""
+  model_fn = get_model_fn(model, train=train, params=params)
 
   if isinstance(sde, (sde_lib.VPSDE, sde_lib.subVPSDE)):
 
-    def score_fn(x, t):
+    def score_fn(x, t, generator=None):
       if continuous or isinstance(sde, sde_lib.subVPSDE):
         # Continuous-time models assume a max time-embedding value of 999.
         labels = t * 999
-        score = model_fn(x, labels)
+        score = model_fn(x, labels, generator)
         std = sde.marginal_coef(t)[1]
       else:
         labels = t * (sde.N - 1)
-        score = model_fn(x, labels)
+        score = model_fn(x, labels, generator)
         std = sde.sqrt_1m_alphas_cumprod.to(t.device)[labels.long()]
       return batch_mul(-1.0 / std, score)
 
   elif isinstance(sde, sde_lib.VESDE):
 
-    def score_fn(x, t):
+    def score_fn(x, t, generator=None):
       if continuous:
         labels = sde.marginal_coef(t)[1]
       else:
         # For VE-trained models, t=0 corresponds to the highest noise level.
         labels = torch.round((sde.T - t) * (sde.N - 1)).long()
-      return model_fn(x, labels)
+      return model_fn(x, labels, generator)
 
   else:
     raise NotImplementedError(

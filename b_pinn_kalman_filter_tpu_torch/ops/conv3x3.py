@@ -18,7 +18,17 @@ tensor on the CPU; for a CUDA tensor it launches a kernel or raises.
 each kernel's.
 Both compute in f32 from inputs cast to ``x.dtype`` (weights too), add the
 f32 bias, and return ``x.dtype`` — the JAX ``_direct_conv`` semantics.
-Forward only: the backward comes with the training slice.
+
+Gradients (the JAX ``_fused_conv`` custom_vjp, whose backward is the vjp of
+``_direct_conv``): for a stride-1 SAME 3x3 conv the data gradient is the
+SAME 3x3 conv of dy with the kernel flipped in both spatial axes and its
+channel axes swapped, ``W'[kh,kw,co,ci] = W[2-kh,2-kw,ci,co]``, and no bias;
+on the card that conv is a launch of the same kernels (Cin and Cout
+swapped in :func:`kernel_for`), counted in ``launches_by_use['data_grad']``,
+and on the CPU it is :func:`conv3x3_plain` with the same ``W'``.  The
+weight gradient is ``torch.nn.grad.conv2d_weight`` (cuDNN on the card): the
+JAX package leaves that contraction to XLA, outside any Pallas kernel.
+Gradients come out in ``x.dtype`` (data) and the parameters' dtypes.
 """
 
 from __future__ import annotations
@@ -138,8 +148,53 @@ def conv3x3(x: torch.Tensor, kernel: torch.Tensor,
   """x (B,H,W,Cin), kernel (3,3,Cin,Cout), bias (Cout,) -> (B,H,W,Cout).
 
   f32 or bf16 ``x``; f32 accumulation; output in ``x.dtype``.
+  Differentiable once in each input (see the module docstring).
   """
-  _build.forward_only('conv3x3', x, kernel, bias)
+  if torch.is_grad_enabled() and any(
+      t is not None and t.requires_grad for t in (x, kernel, bias)):
+    return _Conv3x3.apply(x, kernel, bias)
+  return _conv(x, kernel, bias, 'forward')
+
+
+def flipped(kernel: torch.Tensor) -> torch.Tensor:
+  """``W'[kh,kw,co,ci] = W[2-kh,2-kw,ci,co]``: the kernel whose SAME conv
+  of dy is the data gradient of the SAME conv with ``kernel``."""
+  return kernel.flip(0, 1).transpose(2, 3)
+
+
+class _Conv3x3(torch.autograd.Function):
+  """K1 with its backward: dx by K1 on :func:`flipped` weights, dW by
+  ``conv2d_weight``, db by a sum (JAX ``_fused_conv_bwd``)."""
+
+  @staticmethod
+  def forward(ctx, x, kernel, bias):
+    ctx.save_for_backward(x, kernel)
+    ctx.bias_dtype = None if bias is None else bias.dtype
+    return _conv(x, kernel, bias, 'forward')
+
+  @staticmethod
+  @torch.autograd.function.once_differentiable
+  def backward(ctx, dy):
+    x, kernel = ctx.saved_tensors
+    dx = dk = db = None
+    dy = dy.to(x.dtype)
+    if ctx.needs_input_grad[0]:
+      dx = _conv(dy, flipped(kernel), None, 'data_grad')
+    if ctx.needs_input_grad[1]:
+      dk = torch.nn.grad.conv2d_weight(
+          x.permute(0, 3, 1, 2), (kernel.shape[3], kernel.shape[2], 3, 3),
+          dy.permute(0, 3, 1, 2), padding=1)
+      dk = dk.permute(2, 3, 1, 0).to(kernel.dtype)        # OIHW -> HWIO
+    if ctx.bias_dtype is not None and ctx.needs_input_grad[2]:
+      db = dy.float().sum((0, 1, 2)).to(ctx.bias_dtype)
+    return dx, dk, db
+
+
+def _conv(x: torch.Tensor, kernel: torch.Tensor,
+          bias: Optional[torch.Tensor], use: str) -> torch.Tensor:
+  """The forward of :func:`conv3x3` (``use`` 'forward') or its data
+  gradient ('data_grad'): the plain version for a CPU tensor, else a
+  kernel launch."""
   if x.device.type == 'cpu':
     return conv3x3_plain(x, kernel, bias)
   if x.device.type != 'cuda':
@@ -160,7 +215,7 @@ def conv3x3(x: torch.Tensor, kernel: torch.Tensor,
     if t is not None and t.device != x.device:
       raise ValueError('conv3x3: x, kernel and bias must share a device')
 
-  return _launch(kernel_for(x.dtype, Cin, Cout), x, kernel, bias)
+  return _launch(kernel_for(x.dtype, Cin, Cout), x, kernel, bias, use)
 
 
 def _conv3x3_direct(x: torch.Tensor, kernel: torch.Tensor,
@@ -172,7 +227,8 @@ def _conv3x3_direct(x: torch.Tensor, kernel: torch.Tensor,
 
 
 def _launch(which: str, x: torch.Tensor, kernel: torch.Tensor,
-            bias: Optional[torch.Tensor]) -> torch.Tensor:
+            bias: Optional[torch.Tensor], use: str = 'forward'
+            ) -> torch.Tensor:
   B, H, W, Cin = x.shape
   Cout = kernel.shape[3]
   x = x.contiguous()
@@ -197,8 +253,10 @@ def _launch(which: str, x: torch.Tensor, kernel: torch.Tensor,
   _build.check_launch(err, f'conv3x3 ({which})')
   conv3x3.launches += 1
   conv3x3.launches_by_kernel[which] += 1
+  conv3x3.launches_by_use[use] += 1
   return y
 
 
 conv3x3.launches = 0
 conv3x3.launches_by_kernel = {'wgmma': 0, 'direct': 0}
+conv3x3.launches_by_use = {'forward': 0, 'data_grad': 0}

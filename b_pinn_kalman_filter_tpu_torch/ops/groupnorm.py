@@ -9,7 +9,10 @@ shared memory; :func:`groupnorm_plan` sizes it.
 :func:`groupnorm_act` takes the plain version, :func:`groupnorm_act_plain`,
 only for a tensor on the CPU; for a CUDA tensor it launches the kernel or
 raises.  Statistics are f32, scale and bias f32, output in ``x.dtype``.
-Forward only: the backward comes with the training slice.
+
+Gradients, as the JAX custom_vjp takes them: the forward is the kernel,
+the backward recomputes through :func:`groupnorm_act_plain` and returns its
+vjp, on every device.
 """
 
 from __future__ import annotations
@@ -102,8 +105,37 @@ def groupnorm_plan(H: int, W: int, C: int, G: int, itemsize: int) -> Dict:
 def groupnorm_act(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                   num_groups: int = 32, act: str = 'silu',
                   eps: float = 1e-6) -> torch.Tensor:
-  """x (B,H,W,C) -> act(GroupNorm(x)), same shape and dtype."""
-  _build.forward_only('groupnorm_act', x, scale, bias)
+  """x (B,H,W,C) -> act(GroupNorm(x)), same shape and dtype.
+
+  Differentiable once in ``x``, ``scale`` and ``bias``.
+  """
+  if torch.is_grad_enabled() and any(
+      t.requires_grad for t in (x, scale, bias)):
+    return _GroupNormAct.apply(x, scale, bias, num_groups, act, eps)
+  return _groupnorm_act(x, scale, bias, num_groups, act, eps)
+
+
+class _GroupNormAct(torch.autograd.Function):
+  """K2 forward; backward by recomputing the plain version (JAX
+  ``_groupnorm_act_bwd``)."""
+
+  @staticmethod
+  def forward(ctx, x, scale, bias, num_groups, act, eps):
+    ctx.save_for_backward(x, scale, bias)
+    ctx.args = (num_groups, act, eps)
+    return _groupnorm_act(x, scale, bias, num_groups, act, eps)
+
+  @staticmethod
+  @torch.autograd.function.once_differentiable
+  def backward(ctx, dy):
+    inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+    with torch.enable_grad():
+      y = groupnorm_act_plain(*inputs, *ctx.args)
+    return torch.autograd.grad(y, inputs, dy) + (None, None, None)
+
+
+def _groupnorm_act(x, scale, bias, num_groups, act, eps):
+  """The forward: the plain version for a CPU tensor, else the kernel."""
   if x.device.type == 'cpu':
     return groupnorm_act_plain(x, scale, bias, num_groups, act, eps)
   if x.device.type != 'cuda':

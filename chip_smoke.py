@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one NVIDIA card and check it.
 
-    python3 chip_smoke.py [--steps N] [--requests R] [--cycles C] [--seed S]
-                          [--out DIR]
+    python3 chip_smoke.py [--steps N] [--requests R] [--cycles C]
+                          [--train-steps T] [--seed S] [--out DIR]
 
 Run from the root of a checkout; it needs one CUDA card, ``nvcc`` and
 ``nvidia-smi``, and imports nothing of JAX or the JAX package.  Phases:
@@ -44,7 +44,24 @@ Run from the root of a checkout; it needs one CUDA card, ``nvcc`` and
    and the samples finite; then profile one steady sampler step
    (``torch.profiler``): host and device-busy seconds, idle share, top
    device ops;
-7. run the ``ukf`` entry point ``ukf_lib.run`` at the full width of
+7. the training step (``--train-steps``, default 40): one step's loss and
+   gradients at the flagship's full width and batch 128, kernel path
+   against plain path (the same randomised parameters, batch, t, z and
+   dropout generator), in f32 (TF32 off) and bf16, each leaf's gradient
+   within the limit; K1 as the data gradient (dy through the flipped
+   kernel) at every site shape at batch 128, against its plain version
+   in f32 and bf16 and timed in bf16 beside ``torch.nn.grad.conv2d_input``;
+   then ``run_lib.train`` at batch 128 in bf16 for steps 0..40 with the
+   cadence cut so that log, eval, the preemption checkpoint and a snapshot
+   (sampling at N = ``--steps``) fire, the launch counts set to 0 before
+   and read after (K1: per step every forward site and every data-gradient
+   site, each the wgmma kernel; K2: every forward site; plus the eval and
+   sampling forwards); checks: finite losses, parameters moved, the EMA
+   step on one leaf, the snapshot samples; steady steps/s and imgs/s
+   (event-free steps, each synchronised), peak memory, one steady step
+   under ``torch.profiler``; then a second call that resumes from the
+   preemption checkpoint;
+8. run the ``ukf`` entry point ``ukf_lib.run`` at the full width of
    ``pinn/pinn_pde`` (64x64, FlowNet levels 16..128, 8x8 patches: 256
    filters of dimension 64, 8 B-PINN draws a cycle) for ``--cycles``
    cycles (default 10) with seeded random B-PINN parameters, the launch
@@ -60,11 +77,11 @@ Run from the root of a checkout; it needs one CUDA card, ``nvcc`` and
    host seconds, and each under ``torch.profiler`` (host and device-busy
    seconds, idle share, device ops, top ops), and the filter profiled
    likewise;
-8. print the kernel table as one JSON line (every kernel of the paths and
+9. print the kernel table as one JSON line (every kernel of the paths and
    every yardstick beside it), then the ``{"ok": true, ...}`` line.  With
    ``--out DIR`` the per-shape details go to ``DIR/chip_smoke.json``.
 
-Error limits (relative to max |reference|), in phases 3 to 5: f32 1e-4;
+Error limits (relative to max |reference|), in phases 3 to 5 and 7: f32 1e-4;
 bf16 3e-2, the bound tests/test_winograd.py holds bf16 Winograd to.
 
 Any failed phase exits non-zero without the last line.  Without a CUDA card
@@ -90,8 +107,9 @@ from torch.func import functional_call
 from torch.profiler import ProfilerActivity, profile
 
 from b_pinn_kalman_filter_tpu_torch import configs
-from b_pinn_kalman_filter_tpu_torch.core import sampling
+from b_pinn_kalman_filter_tpu_torch.core import losses, sampling
 from b_pinn_kalman_filter_tpu_torch.core import sde as sde_lib
+from b_pinn_kalman_filter_tpu_torch.data.datasets import get_dataset
 from b_pinn_kalman_filter_tpu_torch.data.ns_rollout import ns_rollout
 from b_pinn_kalman_filter_tpu_torch.kalman import ukf_lib
 from b_pinn_kalman_filter_tpu_torch.models import layers, registry
@@ -103,6 +121,7 @@ from b_pinn_kalman_filter_tpu_torch.ops import ns_step as k4
 from b_pinn_kalman_filter_tpu_torch.pinn import bayes
 from b_pinn_kalman_filter_tpu_torch.pinn.pinn_lib import init_pinn
 from b_pinn_kalman_filter_tpu_torch.train import run_lib
+from b_pinn_kalman_filter_tpu_torch.train import state as state_lib
 
 CONFIG = 'vp/cifar10_ddpmpp_continuous'
 BATCH = 8
@@ -113,6 +132,27 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 UKF_CONFIG = 'pinn/pinn_pde'
 NS_DT, NS_DX = 0.0025, 1 / 200
+# Device ops grouped by name in the profiles: the port's kernels, the
+# libraries' convolutions, matrix products, QRs and triangular solves
+# (cuDNN, cuBLAS, MAGMA), and PyTorch's own kernels by kind.  The first
+# family whose key matches takes an op.
+DEVICE_FAMILIES = (
+    ('K1 conv3x3', ('conv3x3_wgmma_kernel', 'conv3x3_nhwc_kernel')),
+    ('K2 groupnorm_act', ('groupnorm_act_kernel',)),
+    ('K3 correlation', ('correlation_kernel',)),
+    ('K4 ns_step', ('ns_step_kernel', 'velocity_kernel',
+                    'pressure_density_kernel')),
+    ('library (cuDNN, cuBLAS, MAGMA)', ('xmma', 'gemm', 'cutlass', 'cudnn',
+                                        'sm90_', 'sm80_', 'wgrad', 'dgrad',
+                                        'geqr', 'trsm')),
+    ('reduce', ('reduce_kernel',)),
+    ('copy/cast', ('copy', 'Copy')),
+    ('elementwise', ('elementwise',)),
+)
+# A gradient leaf whose largest element is below this share of the largest
+# leaf's in f32 is zero but for rounding (the attention blocks' key
+# biases: ~1e-9 of it on a small U-Net, every other leaf above 1e-3).
+ZERO_LEAF = 1e-6
 # f32 operations per pixel of one NS step, counted from csrc/ns_step.cu
 # (stage 1: 10, stage 2: 2 x 96, stage 3: 19 + 96; a division as one).
 NS_STEP_OPS = 317
@@ -587,12 +627,288 @@ def ukf_phase(cycles, out_dir):
   return report, launches, failures
 
 
+def check_conv_dgrad(shape, batch, seed):
+  """K1 as the data gradient of the site (H, W, Cin, Cout) at ``batch``:
+  dy (B, H, W, Cout) through the flipped kernel (3, 3, Cout, Cin), as the
+  train step launches it, against the plain version in f32 and bf16; in
+  bf16 also timed beside the library call of the same function,
+  ``torch.nn.grad.conv2d_input`` (cuDNN)."""
+  H, W, cin, cout = shape
+  g = torch.Generator(device='cuda').manual_seed(seed)
+  row = {}
+  for dtype in (torch.float32, torch.bfloat16):
+    dy = torch.randn((batch, H, W, cout), generator=g, device='cuda').to(dtype)
+    w = (torch.randn((3, 3, cin, cout), generator=g, device='cuda') / (
+        9 * cin) ** 0.5).to(dtype)
+    wf = k1.flipped(w).contiguous()      # the wrapper's cast is a no-op
+    name = str(dtype).split('.')[-1]
+    with torch.inference_mode():
+      got = k1._conv(dy, wf, None, 'data_grad')
+      want = k1.conv3x3_plain(dy, wf)
+      torch.cuda.synchronize()
+      row[f'{name}_abs_err'], row[f'{name}_rel_err'] = rel_err(got, want)
+      row[f'{name}_kernel'] = k1.kernel_for(dtype, cout, cin)
+      if dtype == torch.bfloat16:
+        dy_lib = dy.permute(0, 3, 1, 2)
+        w_lib = w.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        row.update(timings(
+            lambda: k1._conv(dy, wf, None, 'data_grad'),
+            lambda: k1.conv3x3_plain(dy, wf),
+            lambda: torch.nn.grad.conv2d_input(
+                (batch, cin, H, W), w_lib, dy_lib, padding=1)))
+        flops = 2 * 9 * batch * H * W * cin * cout
+        nbytes = (dy.numel() + w.numel() + batch * H * W * cin) * 2
+        row['bound_ms'], row['bound_by'] = bound(flops, nbytes, dtype)
+  row.update(max_abs_err=row['bfloat16_abs_err'])
+  return row
+
+
+def dgrad_phase(sites, batch, seed):
+  """K1's data gradient at every site shape of the train step (per step:
+  one launch per forward site).  Returns (rows, per-step bf16 totals,
+  failures)."""
+  rows, failures = [], []
+  for i, (shape, count) in enumerate(sorted(sites.items())):
+    row = check_conv_dgrad(shape, batch, seed + i)
+    row.update(shape=list(shape), per_step=count, batch=batch)
+    rows.append(row)
+    log(f'  dx of {shape} x{count} at batch {batch}: f32 '
+        f'{row["float32_kernel"]} rel {row["float32_rel_err"]:.3e}, bf16 '
+        f'{row["bfloat16_kernel"]} rel {row["bfloat16_rel_err"]:.3e} | '
+        f'kernel {row["ms"]:.4f} ms (call {row["call_ms"]:.4f}) plain '
+        f'{row["plain_ms"]:.4f} conv2d_input {row["library_ms"]:.4f} bound '
+        f'{row["bound_ms"]:.4f} ({row["bound_by"]})')
+    for dtype in (torch.float32, torch.bfloat16):
+      name = str(dtype).split('.')[-1]
+      if not row[f'{name}_rel_err'] <= TOL[dtype]:
+        failures.append(f'conv3x3 dx {shape} {name}: rel '
+                        f'{row[name + "_rel_err"]:.3e}')
+      if row[f'{name}_kernel'] != k1.kernel_for(dtype, shape[2], shape[3]):
+        failures.append(f'conv3x3 dx {shape} {name}: kernel '
+                        f'{row[name + "_kernel"]} differs from the forward')
+  total = {k: sum(r[k] * r['per_step'] for r in rows)
+           for k in ('ms', 'call_ms', 'plain_ms', 'library_ms', 'bound_ms')}
+  by = collections.Counter()
+  for r in rows:
+    by[r['bound_by']] += r['bound_ms'] * r['per_step']
+  total.update(bound_by=by.most_common(1)[0][0],
+               max_abs_err=max(r['max_abs_err'] for r in rows))
+  log(f'  dx per train step (bf16, batch {batch}, device ms): kernel '
+      f'{total["ms"]:.4f}, plain {total["plain_ms"]:.4f}, conv2d_input '
+      f'{total["library_ms"]:.4f}, bound {total["bound_ms"]:.4f}')
+  return rows, total, failures
+
+
+def train_grad_phase(seed):
+  """One train step's loss and gradients, kernel path against plain path,
+  at the flagship's full width and batch: the same randomised parameters,
+  batch, t, z and dropout generator, in f32 (TF32 off) and bf16; each
+  leaf's gradient within the limit of max |plain gradient| of that leaf
+  (of the largest leaf, for a leaf that is zero but for rounding).
+  Returns (report, failures)."""
+  out, failures = {}, []
+  for dtype in (torch.float32, torch.bfloat16):
+    config, kernel_model = flagship(dtype, True, seed)
+    _, plain_model = flagship(dtype, False, seed)
+    sde, _ = sde_lib.get_sde(config)
+    batch_size, size = config.training.batch_size, config.data.image_size
+    g = torch.Generator(device='cuda').manual_seed(seed)
+    batch = torch.rand((batch_size, size, size, config.data.num_channels),
+                       generator=g, device='cuda') * 2 - 1
+    t = torch.rand((batch_size,), generator=g, device='cuda') * (
+        sde.T - 1e-5) + 1e-5
+    z = torch.randn(batch.shape, generator=g, device='cuda')
+    results = {}
+    for path, model in (('kernel', kernel_model), ('plain', plain_model)):
+      params = dict(model.named_parameters())
+      loss_fn = losses.get_sde_loss_fn(sde, model, True, reduce_mean=True,
+                                       likelihood_weighting=False)
+      dropout = torch.Generator(device='cuda').manual_seed(seed + 1)
+      loss = loss_fn(params, batch, dropout, noise=(t, z))
+      grads = torch.autograd.grad(loss, list(params.values()))
+      results[path] = (float(loss.detach()), dict(zip(params, grads)))
+      del loss, grads
+    (k_loss, k_grads), (p_loss, p_grads) = results['kernel'], results['plain']
+    loss_rel = abs(k_loss - p_loss) / abs(p_loss)
+    # A leaf whose gradient is zero but for rounding (an attention block's
+    # key bias: softmax ignores it) is held relative to the largest leaf;
+    # the f32 run finds them, the bf16 run (whose rounding is larger)
+    # takes the same leaves.
+    top = max(float(v.abs().max()) for v in p_grads.values())
+    if dtype == torch.float32:
+      zero = [n for n, v in p_grads.items()
+              if float(v.abs().max()) < ZERO_LEAF * top]
+    leaf_errs = {n: float((k_grads[n].float() - p_grads[n].float()).abs()
+                          .max()) / (top if n in zero
+                                     else float(p_grads[n].abs().max()))
+                 for n in p_grads}
+    worst = sorted(leaf_errs, key=leaf_errs.get, reverse=True)[:3]
+    finite = all(bool(torch.isfinite(v).all()) for v in k_grads.values())
+    name = str(dtype).split('.')[-1]
+    out[name] = dict(loss_kernel=k_loss, loss_plain=p_loss, loss_rel=loss_rel,
+                     max_leaf_rel=leaf_errs[worst[0]],
+                     worst_leaves={n: leaf_errs[n] for n in worst},
+                     leaves=len(leaf_errs), zero_leaves=zero,
+                     tol=TOL[dtype])
+    log(f'  train-step gradients {name}, batch {batch_size}: loss kernel '
+        f'{k_loss:.6f} plain {p_loss:.6f} (rel {loss_rel:.2e}); '
+        f'{len(leaf_errs)} leaves ({len(zero)} zero but for rounding, '
+        f'held relative to the largest: {zero[:3]}...), worst rel '
+        + ', '.join(f'{n} {leaf_errs[n]:.2e}' for n in worst)
+        + f' (limit {TOL[dtype]})')
+    if not (finite and loss_rel <= TOL[dtype]
+            and leaf_errs[worst[0]] <= TOL[dtype]):
+      failures.append(f'train-step gradients {name}: loss rel '
+                      f'{loss_rel:.3e}, worst leaf {worst[0]} '
+                      f'{leaf_errs[worst[0]]:.3e}, finite {finite}')
+    del kernel_model, plain_model, results, k_grads, p_grads
+    torch.cuda.empty_cache()
+  return out, failures
+
+
+def train_phase(steps, train_steps, per_forward, seed):
+  """``run_lib.train`` at the flagship's full width, batch 128, bf16, for
+  ``train_steps`` + 1 steps with the cadence cut so that log, eval, the
+  preemption checkpoint and a snapshot (sampling at N = ``steps``) fire;
+  the launch counts set to 0 before and read after; then a second call
+  that resumes from the preemption checkpoint.  Returns (report,
+  launches, failures)."""
+  config = configs.get_config(CONFIG)
+  config.model.num_scales = steps
+  t = config.training
+  t.n_iters = train_steps
+  t.log_freq = 10
+  t.eval_freq = train_steps // 2
+  t.snapshot_freq_for_preemption = train_steps // 2
+  t.snapshot_freq = train_steps
+  failures, history = [], []
+  with tempfile.TemporaryDirectory() as workdir:
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    start = time.time()
+    state = run_lib.train(config, workdir, device='cuda', history=history)
+    torch.cuda.synchronize()
+    total_s = time.time() - start
+    peak = torch.cuda.max_memory_allocated()
+    launches = {'conv3x3': k1.conv3x3.launches,
+                'groupnorm_act': k2.groupnorm_act.launches}
+    by_kernel = dict(k1.conv3x3.launches_by_kernel)
+    by_use = dict(k1.conv3x3.launches_by_use)
+    fired = collections.Counter(e for h in history for e in h['events'])
+    n_steps = len(history)
+    forwards = n_steps + fired['eval'] + fired['snapshot'] * steps
+    expected = {'conv3x3': per_forward['conv3x3'] * (forwards + n_steps),
+                'groupnorm_act': per_forward['groupnorm_act'] * forwards}
+    expected_use = {'forward': per_forward['conv3x3'] * forwards,
+                    'data_grad': per_forward['conv3x3'] * n_steps}
+    sample = os.path.join(workdir, 'samples', f'iter_{train_steps}',
+                          'sample.np')
+    sample_shape = (list(np.load(sample).shape) if os.path.exists(sample)
+                    else None)
+
+    # The parameters moved from the init; the EMA step on one leaf.
+    init = registry.create_model(config, device='cuda', seed=config.seed)
+    moved = sum(not torch.equal(p, state.params[n])
+                for n, p in init.named_parameters())
+    leaf = 'ResnetBlockDDPM_0.Conv3x3_0.Conv_0.kernel'
+    e_before = state.ema_params[leaf].clone()
+    decay = state_lib.ema_decay(state.step, state.ema_rate)
+    step_fn = losses.get_step_fn(
+        sde_lib.get_sde(config)[0], init, losses.get_optimizer(config),
+        train=True, reduce_mean=t.reduce_mean, continuous=True)
+    g = torch.Generator(device='cuda').manual_seed(seed)
+    size = config.data.image_size
+    batch = torch.rand((t.batch_size, size, size, config.data.num_channels),
+                       generator=g, device='cuda') * 2 - 1
+    state, _ = step_fn(state, batch, g)
+    want = e_before - (1 - decay) * (e_before - state.params[leaf].detach())
+    ema_err = rel_err(state.ema_params[leaf], want)[1]
+    # One steady step under the profiler.
+    step_fn(state, batch, g)
+    profile_out, _ = profiled('train step (batch 128, bf16)',
+                              lambda: step_fn(state, batch, g))
+    del init, state
+
+    t.n_iters = train_steps + 4
+    t.snapshot_sampling = False
+    resumed_history = []
+    resumed = run_lib.train(config, workdir, device='cuda',
+                            history=resumed_history)
+    resumed_steps = [h['step'] for h in resumed_history]
+    resumed_final = resumed.step
+    del resumed
+
+  # The host's share: one batch assembled by the loader (the synthetic
+  # CIFAR-10 stand-in), as every step does before its update.
+  it = iter(get_dataset(config)[0])
+  next(it)
+  start = time.perf_counter()
+  for _ in range(5):
+    next(it)
+  batch_s = (time.perf_counter() - start) / 5
+
+  steady = [h['seconds'] for h in history[2:] if not h['events']]
+  step_s = float(np.mean(steady))
+  losses_ = [h['loss'] for h in history]
+  report = dict(
+      steps=n_steps, events=dict(fired), total_s=total_s,
+      steady_step_s=step_s, batch_assembly_s=batch_s, steps_per_s=1 / step_s,
+      imgs_per_s=t.batch_size / step_s, steady_steps_timed=len(steady),
+      first_step_s=history[0]['seconds'],
+      event_step_s={h['step']: h['seconds'] for h in history if h['events']},
+      losses=losses_, max_memory_allocated=peak, launches=launches,
+      expected_launches=expected, conv3x3_by_kernel=by_kernel,
+      conv3x3_by_use=by_use, expected_by_use=expected_use,
+      params_moved=moved, ema_rel_err=ema_err, sample_shape=sample_shape,
+      resumed_steps=resumed_steps, resumed_final_step=resumed_final,
+      profile=profile_out)
+  log(f'  {n_steps} steps in {total_s:.2f} s (events {dict(fired)}); steady '
+      f'step {step_s:.4f} s (mean of {len(steady)} event-free steps after '
+      f'the first two, synchronised): {1 / step_s:.3f} steps/s, '
+      f'{t.batch_size / step_s:.1f} imgs/s; first step '
+      f'{history[0]["seconds"]:.2f} s; of a step, the batch\'s assembly '
+      f'on the host {batch_s:.4f} s')
+  log(f'  losses: first {losses_[0]:.5f}, last {losses_[-1]:.5f}, all '
+      f'finite {bool(np.isfinite(losses_).all())}; peak memory '
+      f'{peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated)')
+  log(f'  launches {launches} (expected {expected}), conv3x3 by kernel '
+      f'{by_kernel}, by use {by_use} (expected {expected_use})')
+  log(f'  parameters moved from the init: {moved} leaves; EMA step on '
+      f'{leaf}: rel {ema_err:.2e}; samples {sample_shape}; resumed at '
+      f'{resumed_steps[:1]} to step {resumed_final}')
+  if not np.isfinite(losses_).all():
+    failures.append('train: a loss is not finite')
+  for name, n in expected.items():
+    if launches[name] != n:
+      failures.append(f'train {name}: {launches[name]} launches, expected '
+                      f'{n}')
+  if by_use != expected_use:
+    failures.append(f'train conv3x3 by use {by_use}, expected {expected_use}')
+  if by_kernel['direct'] or by_kernel['wgmma'] != launches['conv3x3']:
+    failures.append(f'train conv3x3: bf16 sites left the wgmma kernel: '
+                    f'{by_kernel}')
+  if not moved:
+    failures.append('train: no parameter moved')
+  if not ema_err <= 1e-6:
+    failures.append(f'train: EMA step rel error {ema_err:.3e}')
+  if sample_shape != [t.batch_size // 4, size, size,
+                      config.data.num_channels]:
+    failures.append(f'train: snapshot samples {sample_shape}')
+  want_resumed = list(range(train_steps + 1, train_steps + 5))
+  if resumed_steps != want_resumed or resumed_final != train_steps + 5:
+    failures.append(f'train: resumed steps {resumed_steps}, final '
+                    f'{resumed_final}; expected {want_resumed}')
+  return report, launches, failures
+
+
 def reset_counts():
   """Every kernel's launch counts to 0."""
   for kernel in (k1.conv3x3, k2.groupnorm_act, k3.correlation,
                  k4.ns_step_fused):
     kernel.launches = 0
-  for counts in (k1.conv3x3.launches_by_kernel,
+  for counts in (k1.conv3x3.launches_by_kernel, k1.conv3x3.launches_by_use,
                  k4.ns_step_fused.launches_by_kernel):
     for key in counts:
       counts[key] = 0
@@ -623,9 +939,17 @@ def profiled(name, fn):
                     key=lambda e: -e.self_cpu_time_total)[:6]
   # No device op in the trace means the profiler saw no device time, not
   # an idle device: the share is then not measured.
+  families = collections.defaultdict(lambda: [0, 0.0])
+  for e in device_ops:
+    family = next((f for f, keys in DEVICE_FAMILIES
+                   if any(k in e.key for k in keys)), 'other')
+    families[family][0] += e.count
+    families[family][1] += e.self_device_time_total * 1e-3
   out = dict(host_s=host_s, device_busy_s=busy_s,
              idle_share=1 - busy_s / host_s if device_ops else None,
              device_ops=sum(e.count for e in device_ops),
+             families={f: tuple(v) for f, v in sorted(
+                 families.items(), key=lambda kv: -kv[1][1])},
              top=[(e.key, e.count, e.self_device_time_total * 1e-3)
                   for e in top],
              top_host=[(e.key, e.count, e.self_cpu_time_total * 1e-3)
@@ -634,6 +958,8 @@ def profiled(name, fn):
   log(f'  {name}: host {host_s:.4f} s, device busy {busy_s:.4f} s '
       f'(idle share {"not measured" if share is None else f"{share:.3f}"}'
       f'), {out["device_ops"]} device kernels and copies')
+  log('    device ms by family (launches): ' + ', '.join(
+      f'{f} {ms:.3f} ({n})' for f, (n, ms) in out['families'].items()))
   for key, count, ms in out['top']:
     log(f'    {ms:9.3f} ms  x{count:<5d} {key[:90]}')
   log('    host ops by own CPU time:')
@@ -794,6 +1120,8 @@ def main():
   parser.add_argument('--requests', type=int, default=2)
   parser.add_argument('--cycles', type=int, default=10,
                       help='ukf filter cycles (default 10, as ukf_lib.run)')
+  parser.add_argument('--train-steps', type=int, default=40,
+                      help='train steps after step 0 (default 40; even)')
   parser.add_argument('--seed', type=int, default=0)
   parser.add_argument('--out', default=None,
                       help='directory for chip_smoke.json (per-shape details)')
@@ -906,6 +1234,25 @@ def main():
   log('[serve: one steady sampler step under torch.profiler]')
   report['sampler_profile'] = sampler_profile_phase(config, model, args.seed)
 
+  train_batch = config.training.batch_size
+  log(f'[train: one step\'s loss and gradients, kernel path vs plain path, '
+      f'batch {train_batch}, f32 and bf16]')
+  report['train_grads'], f7 = train_grad_phase(args.seed)
+  failures += f7
+  log(f'[train: K1 as the data gradient at the train step\'s sites, batch '
+      f'{train_batch}]')
+  dgrad_rows, dgrad_total, f8 = dgrad_phase(conv_sites, train_batch,
+                                            args.seed)
+  failures += f8
+  report['kernels']['conv3x3_data_grad'] = dgrad_rows
+  report['per_train_step_bf16'] = {'conv3x3_data_grad': dgrad_total}
+  log(f'[train: run_lib.train, {CONFIG}, batch {train_batch}, bf16, steps '
+      f'0..{args.train_steps}, snapshot sampling at N={steps}; then a '
+      f'resume]')
+  report['train'], train_launches, f9 = train_phase(
+      steps, args.train_steps, per_forward, args.seed)
+  failures += f9
+
   config = configs.get_config(UKF_CONFIG)
   log(f'[ukf: {UKF_CONFIG}, {config.data.image_size}x'
       f'{config.data.image_size}, feature_nums {config.model.feature_nums}, '
@@ -939,6 +1286,8 @@ def main():
             by_kernel['wgmma'], conv_all),
       entry('conv3x3_direct', 'conv3x3.cu', 'winograd_pallas.py:159',
             by_kernel['direct'], conv_all, yardstick=True),
+      entry('conv3x3_data_grad', 'conv3x3_wgmma.cu', 'winograd_pallas.py:159',
+            report['train']['conv3x3_by_use']['data_grad'], dgrad_total),
       entry('groupnorm_act', 'groupnorm.cu', 'groupnorm_pallas.py:118',
             launches['groupnorm_act'], norm_all),
       entry('groupnorm_act_pergroup', 'groupnorm_pergroup.cu',
@@ -960,10 +1309,11 @@ def main():
     with open(os.path.join(args.out, 'chip_smoke.json'), 'w') as f:
       json.dump(report, f, indent=1)
   log(f'total {report["seconds"]:.1f} s; kernel-table times (device ms): '
-      'K1, K2 per U-Net forward (sum over the sites of one forward, bf16), '
-      'K3, K4 per ukf cycle (f32), each yardstick (the first card design) '
-      'at the same shapes; launches from the sampler (K1, K2) and the ukf '
-      'run (K3, K4)')
+      'K1, K2 per U-Net forward (sum over the sites of one forward, bf16, '
+      'batch 8), K1 as the data gradient per train step (bf16, batch '
+      f'{train_batch}), K3, K4 per ukf cycle (f32), each yardstick (the '
+      'first card design) at the same shapes; launches from the sampler '
+      '(K1, K2), the train run (K1 data gradient) and the ukf run (K3, K4)')
   if failures:
     for failure in failures:
       print(f'FAILED: {failure}', file=sys.stderr)

@@ -134,3 +134,185 @@ def pinn_inputs(batch=1, size=16, seed=0):
   y = np.broadcast_to(ys[None, :, :, None], f1.shape).astype(np.float32)
   t = np.arange(1, batch + 1, dtype=np.float32)
   return f1, f2, x, y, t
+
+
+# The train step's parity (tests/test_torch_train*.py): the flagship
+# optimizer with warmup 2, so that steps 0, 1, 2 take lr 0, lr / 2 and lr,
+# the clip at 1.0 active; and a case with coupled weight decay and a clip
+# too large to act.  Dropout is 0: masks cannot be shared across
+# frameworks.  Limits, relative to max |JAX| over each tree: 1e-4 for the
+# loss and the parameters; 1e-5 for the Adam moments, the optimizer's
+# updates from equal gradients and the EMA step from equal inputs.
+# Through three steps the EMA, a mix of the parameters, is held to the
+# parameters' 1e-4: Adam divides by sqrt(nu), so an element whose gradient
+# is small takes an update with its gradient's relative error, up to ~lr.
+TRAIN_CASES = {'flagship': dict(warmup=2),
+               'decay': dict(warmup=2, weight_decay=0.05, grad_clip=1e6)}
+LOSS_TOL = 1e-4
+LEAF_TOL = 1e-4
+MOMENT_TOL = 1e-5
+TRAIN_BATCH = 4
+# XLA's lowest backend optimisation level: the JAX steps compile in
+# seconds less and run a few times each.
+FAST_COMPILE = {'xla_backend_optimization_level': 0,
+                'xla_llvm_disable_expensive_passes': True}
+
+
+def train_configs(case):
+  """(the JAX config's ``optim`` block as a namespace, the port's config)
+  of ``case``, dropout 0.  (ml_collections keeps ``weight_decay`` an int.)"""
+  import types
+  jax_config, torch_config = tiny_configs()
+  optim = dict(jax_config.optim.to_dict(), **TRAIN_CASES[case])
+  torch_config.optim.update(TRAIN_CASES[case])
+  torch_config.model.dropout = 0.0
+  return (types.SimpleNamespace(optim=types.SimpleNamespace(**optim)),
+          torch_config)
+
+
+def jax_train_side(case):
+  """The JAX side of ``case``: randomised params, the optimizer, and the
+  jitted train step, eval step and EMA step (each compiled once)."""
+  import types
+
+  import jax
+  from b_pinn_kalman_filter_tpu import models as jax_models
+  from b_pinn_kalman_filter_tpu.core import losses as jax_losses
+  from b_pinn_kalman_filter_tpu.core import sde as jax_sde
+  from b_pinn_kalman_filter_tpu.train import state as jax_state
+  jax_config, _ = tiny_configs()
+  jax_config.model.dropout = 0.0
+  model = jax_models.create_model(jax_config)
+  _, params = jax_tiny_model(jax_config, seed=3)
+  sde, _ = jax_sde.get_sde(jax_config)
+  tx = jax_losses.get_optimizer(train_configs(case)[0])
+  common = dict(reduce_mean=True, continuous=True, likelihood_weighting=False)
+  rate = jax_config.model.ema_rate
+  return dict(
+      params=params, sde=sde, tx=tx, ema_rate=rate,
+      step=jax.jit(jax_losses.get_step_fn(sde, model, tx, train=True,
+                                          **common),
+                   compiler_options=FAST_COMPILE),
+      eval_step=jax.jit(jax_losses.get_step_fn(sde, model, tx, train=False,
+                                               **common),
+                        compiler_options=FAST_COMPILE),
+      ema_step=jax.jit(lambda step, ema, new: jax_state.ema_update(
+          types.SimpleNamespace(step=step, ema_rate=rate, ema_params=ema),
+          new)))
+
+
+def jax_train_noise(sde, step, shape):
+  """(``PRNGKey(step)``, and as tensors the t and z the JAX loss draws
+  from it: ``t_rng, z_rng, drop_rng = split(rng, 3)``)."""
+  import jax
+  rng = jax.random.PRNGKey(step)
+  t_rng, z_rng, _ = jax.random.split(rng, 3)
+  t = jax.random.uniform(t_rng, (shape[0],), minval=1e-5, maxval=sde.T)
+  z = jax.random.normal(z_rng, shape)
+  return rng, (torch.from_numpy(np.array(t)), torch.from_numpy(np.array(z)))
+
+
+def train_batch(seed):
+  rng = np.random.default_rng(seed)
+  return rng.uniform(-1, 1, (TRAIN_BATCH, 8, 8, 3)).astype(np.float32)
+
+
+def leaves(tree, prefix=''):
+  for key, value in tree.items():
+    if hasattr(value, 'items'):
+      yield from leaves(value, f'{prefix}{key}.')
+    else:
+      yield f'{prefix}{key}', np.asarray(value)
+
+
+def compare_trees(port_tree, jax_tree, tol, what):
+  """Every leaf within ``tol`` of max |JAX| over the tree (a leaf's own
+  maximum can be ~0: a temb bias ahead of a one-channel GroupNorm group
+  has a gradient of zero up to rounding)."""
+  want = dict(leaves(jax_tree))
+  got = dict(leaves(port_tree))
+  assert got.keys() == want.keys(), what
+  scale = max(np.abs(w).max() for w in want.values())
+  errors = {name: float(np.abs(got[name] - want[name]).max()) / scale
+            for name in want}
+  worst = max(errors, key=errors.get)
+  assert errors[worst] <= tol, (what, worst, errors[worst])
+
+
+def _rel(got, want):
+  want = np.asarray(want, np.float32)
+  return float(np.abs(np.asarray(got) - want).max()
+               / max(np.abs(want).max(), 1e-30))
+
+
+def check_three_train_steps(side, case):
+  """Three train steps of the port and of the JAX package from one
+  randomised state under replayed t and z: after each, the loss, every
+  parameter leaf, Adam's mu, nu and count, the EMA and the step (after the
+  first, the parameters unchanged: the warmup's lr is 0); then one eval
+  step under the EMA."""
+  import jax
+  import jax.numpy as jnp
+  from b_pinn_kalman_filter_tpu.train import state as jax_state
+  from b_pinn_kalman_filter_tpu_torch.core import losses
+  from b_pinn_kalman_filter_tpu_torch.core import sde as sde_lib
+  from b_pinn_kalman_filter_tpu_torch.models import convert, ddpm
+  _, torch_config = train_configs(case)
+  tx = losses.get_optimizer(torch_config)
+  j_state = jax_state.create_train_state(
+      jax.tree_util.tree_map(jnp.asarray, side['params']), side['tx'],
+      side['ema_rate'])
+  model = ddpm.DDPM(torch_config).eval()
+  state = convert.train_state_from_jax(j_state, model)
+  sde, _ = sde_lib.get_sde(torch_config)
+  step_fn = losses.get_step_fn(sde, model, tx, train=True, reduce_mean=True,
+                               continuous=True)
+
+  # The clip acts in the flagship case and not in the decay case.
+  batch = train_batch(0)
+  _, noise = jax_train_noise(side['sde'], 0, batch.shape)
+  loss = losses.get_sde_loss_fn(sde, model, True, reduce_mean=True,
+                                likelihood_weighting=False)(
+      state.params, torch.from_numpy(batch), noise=noise)
+  norm = float(torch.linalg.vector_norm(torch.stack([
+      g.norm() for g in torch.autograd.grad(loss, list(state.params.values()))
+  ])))
+  assert (norm >= torch_config.optim.grad_clip) == (case == 'flagship')
+
+  for step in range(3):
+    batch = train_batch(step)
+    rng, noise = jax_train_noise(side['sde'], step, batch.shape)
+    before = convert.train_state_to_jax(state)
+    j_before = j_state.params
+    j_state, j_loss = side['step'](rng, j_state, jnp.asarray(batch))
+    state, p_loss = step_fn(state, torch.from_numpy(batch), noise=noise)
+    assert _rel(p_loss.numpy(), j_loss) <= LOSS_TOL
+    got = convert.train_state_to_jax(state)
+    adam = j_state.opt_state[-1][0]
+    assert got['step'] == int(j_state.step) == step + 1
+    assert got['count'] == int(adam.count) == step + 1
+    compare_trees(got['params'], j_state.params, LEAF_TOL, f'params {step}')
+    compare_trees(got['mu'], adam.mu, MOMENT_TOL, f'mu {step}')
+    compare_trees(got['nu'], adam.nu, MOMENT_TOL, f'nu {step}')
+    # The EMA step on the port's own inputs, by the JAX function.
+    want_ema = side['ema_step'](jnp.asarray(step, jnp.int32),
+                                before['ema_params'], got['params'])
+    compare_trees(got['ema_params'], want_ema, MOMENT_TOL,
+                  f'ema step {step}')
+    # The EMA is a mix of the parameters and follows them to their limit.
+    compare_trees(got['ema_params'], j_state.ema_params, LEAF_TOL,
+                  f'ema {step}')
+    if step == 0:
+      # Warmup: optax reads the count before its increment, lr * 0 / 2.
+      for tree, start in ((got['params'], before['params']),
+                          (j_state.params, j_before)):
+        assert all(np.array_equal(np.asarray(v), w) for (_, v), (_, w) in
+                   zip(leaves(tree), leaves(start)))
+
+  rng, noise = jax_train_noise(side['sde'], 7, batch.shape)
+  _, j_eval = side['eval_step'](rng, j_state, jnp.asarray(batch))
+  eval_fn = losses.get_step_fn(sde, model, tx, train=False, reduce_mean=True,
+                               continuous=True)
+  _, p_eval = eval_fn(state, torch.from_numpy(batch), noise=noise)
+  assert _rel(p_eval.numpy(), j_eval) <= LOSS_TOL
+  assert state.step == 3

@@ -79,10 +79,60 @@ def test_applicable_is_the_jax_guard(x_shape, k_shape):
 
 
 def test_forward_only_raises_under_grad():
+  """No longer forward only: under autograd the wrapper gives the plain
+  version's forward and the gradients of autograd through it."""
   x, w, b = _inputs(1, 4, 4, 32, 32)
-  kernel = torch.from_numpy(w).requires_grad_()
-  with pytest.raises(RuntimeError, match='training slice'):
-    k1.conv3x3(torch.from_numpy(x), kernel, torch.from_numpy(b))
+  args = [torch.from_numpy(a).requires_grad_() for a in (x, w, b)]
+  y = k1.conv3x3(*args)
+  assert y.grad_fn is not None
+  got = torch.autograd.grad(y.square().sum(), args)
+  plain = [torch.from_numpy(a).requires_grad_() for a in (x, w, b)]
+  want = torch.autograd.grad(k1.conv3x3_plain(*plain).square().sum(), plain)
+  for g, w_ in zip(got, want):
+    np.testing.assert_allclose(g.numpy(), w_.numpy(), rtol=1e-5, atol=1e-5)
+
+
+# Gradients, relative to max |JAX gradient|: f32, 1e-4.
+GRAD_TOL = 1e-4
+
+
+@pytest.mark.parametrize('shape', [(2, 8, 8, 32, 48), (1, 5, 7, 40, 32)])
+def test_backward_matches_jax_vjp_of_direct_conv(shape):
+  """dx by the flipped-kernel conv, dW and db, against ``jax.vjp`` of
+  ``winograd._direct_conv`` (the backward of JAX ``_fused_conv``)."""
+  x, w, b = _inputs(*shape, seed=3)
+  dy = np.random.default_rng(4).standard_normal(
+      shape[:3] + (shape[4],)).astype(np.float32)
+  _, vjp = jax.vjp(wg._direct_conv, jnp.asarray(x), jnp.asarray(w),
+                   jnp.asarray(b))
+  want = vjp(jnp.asarray(dy))
+  args = [torch.from_numpy(a).requires_grad_() for a in (x, w, b)]
+  got = torch.autograd.grad(k1.conv3x3(*args), args, torch.from_numpy(dy))
+  for g, w_ in zip(got, want):
+    w_ = np.asarray(w_)
+    assert g.shape == w_.shape and g.dtype == torch.float32
+    assert np.abs(g.numpy() - w_).max() / np.abs(w_).max() <= GRAD_TOL
+
+
+def test_flipped_kernel_is_the_data_gradient_formula():
+  """W'[kh,kw,co,ci] = W[2-kh,2-kw,ci,co], element by element."""
+  w = torch.arange(3 * 3 * 2 * 5, dtype=torch.float32).reshape(3, 3, 2, 5)
+  f = k1.flipped(w)
+  assert f.shape == (3, 3, 5, 2)
+  for kh, kw, co, ci in np.ndindex(3, 3, 5, 2):
+    assert f[kh, kw, co, ci] == w[2 - kh, 2 - kw, ci, co]
+
+
+def test_backward_keeps_the_dtypes():
+  """bf16 x: dx in bf16, the f32 kernel's and bias's gradients in f32."""
+  x, w, b = _inputs(1, 4, 4, 32, 32, seed=5)
+  xb = torch.from_numpy(x).bfloat16().requires_grad_()
+  wt, bt = (torch.from_numpy(a).requires_grad_() for a in (w, b))
+  y = k1.conv3x3(xb, wt, bt)
+  assert y.dtype == torch.bfloat16
+  dx, dw, db = torch.autograd.grad(y.float().sum(), (xb, wt, bt))
+  assert (dx.dtype, dw.dtype, db.dtype) == (torch.bfloat16, torch.float32,
+                                            torch.float32)
 
 
 def test_no_fallback_off_cpu():

@@ -82,6 +82,38 @@ def test_conv3x3_wgmma_is_deterministic_and_agrees_with_direct(card, shape):
   assert _rel(first, direct) <= TOL[torch.bfloat16]
 
 
+@pytest.mark.parametrize('dtype', DTYPES)
+@pytest.mark.parametrize('shape', [
+    (8, 32, 32, 128, 128),     # main-path sites at batch 8, one per level
+    (8, 16, 16, 384, 256),
+    (8, 8, 8, 256, 256),
+    (8, 4, 4, 512, 256),
+    (3, 7, 9, 40, 72),         # odd H and W, ragged tiles both ways
+])
+def test_conv3x3_backward_matches_plain(card, shape, dtype):
+  """dx by a K1 launch on the flipped kernel (the kernel that
+  ``kernel_for`` picks with Cin and Cout swapped), dW and db, against
+  autograd through the plain version; the grads keep their dtypes."""
+  x, w, b = _conv_inputs(card, shape, dtype)
+  B, H, W, cin, cout = shape
+  dy = torch.randn((B, H, W, cout), generator=card, device='cuda').to(dtype)
+  which = k1.kernel_for(dtype, cout, cin)
+  assert which == k1.kernel_for(dtype, cin, cout)
+  by_use = dict(k1.conv3x3.launches_by_use)
+  by_kernel = dict(k1.conv3x3.launches_by_kernel)
+  args = [t.detach().requires_grad_() for t in (x, w, b)]
+  got = torch.autograd.grad(k1.conv3x3(*args), args, dy)
+  assert k1.conv3x3.launches_by_use == {
+      'forward': by_use['forward'] + 1, 'data_grad': by_use['data_grad'] + 1}
+  assert k1.conv3x3.launches_by_kernel == {
+      k: n + 2 * (k == which) for k, n in by_kernel.items()}
+  plain = [t.detach().requires_grad_() for t in (x, w, b)]
+  want = torch.autograd.grad(k1.conv3x3_plain(*plain), plain, dy)
+  for g, w_, t in zip(got, want, (x, w, b)):
+    assert g.dtype == t.dtype and g.shape == t.shape
+    assert _rel(g, w_) <= TOL[dtype]
+
+
 def test_conv3x3_wgmma_takes_an_unaligned_view(card):
   x, w, b = _conv_inputs(card, (1, 4, 4, 72, 64), torch.bfloat16)
   view = x[..., 8:]                          # starts 16 bytes in: aligned
@@ -120,6 +152,29 @@ def test_groupnorm_act_matches_plain(card, shape, groups, act, dtype):
 
 
 @pytest.mark.parametrize('dtype', DTYPES)
+@pytest.mark.parametrize('shape', [(8, 32, 32, 128), (8, 16, 16, 384),
+                                   (8, 8, 8, 256), (8, 4, 4, 512)])
+def test_groupnorm_act_backward_matches_plain(card, shape, dtype):
+  """The forward by a K2 launch, the backward by recomputing the plain
+  version: the gradients equal autograd through the plain version."""
+  x = (torch.randn(shape, generator=card, device='cuda') * 2 + 3).to(dtype)
+  scale = 1 + 0.1 * torch.randn((shape[-1],), generator=card, device='cuda')
+  bias = 0.1 * torch.randn((shape[-1],), generator=card, device='cuda')
+  dy = torch.randn(shape, generator=card, device='cuda').to(dtype)
+  before = k2.groupnorm_act.launches
+  args = [t.detach().requires_grad_() for t in (x, scale, bias)]
+  y = k2.groupnorm_act(*args)
+  got = torch.autograd.grad(y, args, dy)
+  assert k2.groupnorm_act.launches == before + 1
+  plain = [t.detach().requires_grad_() for t in (x, scale, bias)]
+  want_y = k2.groupnorm_act_plain(*plain)
+  want = torch.autograd.grad(want_y, plain, dy)
+  assert _rel(y, want_y) <= TOL[dtype]
+  for g, w in zip(got, want):
+    assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.parametrize('dtype', DTYPES)
 def test_groupnorm_act_pergroup_yardstick_matches_plain(card, dtype):
   x = (torch.randn((2, 8, 8, 256), generator=card, device='cuda') * 2 + 3
        ).to(dtype)
@@ -149,9 +204,10 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(card):
                      torch.zeros(30, device='cuda'), num_groups=32)
   with pytest.raises(ValueError):
     k1.conv3x3(x, torch.zeros((3, 3, 32, 32), device='cuda'))
-  w = torch.zeros((3, 3, 30, 8), device='cuda', requires_grad=True)
-  with pytest.raises(RuntimeError, match='training slice'):
-    k1.conv3x3(x, w)
+  # Under autograd too: the backward's wrapper checks as the forward's.
+  w = torch.zeros((3, 3, 32, 32), device='cuda', requires_grad=True)
+  with pytest.raises(TypeError):
+    k1.conv3x3(x16, w)
 
 
 def _rel_each(got, want):

@@ -31,6 +31,8 @@ if not torch.cuda.is_available():
   for call in (get_device,
                lambda: run_lib.sample(configs.get_config(
                    'vp/cifar10_ddpmpp_continuous'), batch_size=1),
+               lambda: run_lib.train(configs.get_config(
+                   'vp/cifar10_ddpmpp_continuous'), 'workdir-never-made'),
                lambda: ukf_lib.run(configs.get_config('pinn/pinn_pde'),
                                    'workdir-never-made', n_steps=1)):
     try:
@@ -39,6 +41,8 @@ if not torch.cuda.is_available():
       assert 'CUDA is not available' in str(e), e
     else:
       raise AssertionError('the default device did not raise')
+  import os
+  assert not os.path.exists('workdir-never-made')
 print('ok')
 """
 
@@ -46,7 +50,8 @@ print('ok')
 def test_port_imports_no_jax_and_defaults_to_the_card():
   """In a fresh interpreter: import every port module and chip_smoke.py,
   then check sys.modules, and without a card that the default device,
-  run_lib.sample, ukf_lib.run and chip_smoke.main() refuse."""
+  run_lib.sample, run_lib.train, ukf_lib.run and chip_smoke.main()
+  refuse."""
   env = dict(os.environ, PYTHONPATH=ROOT)
   out = subprocess.run([sys.executable, '-c', _IMPORT_ALL], cwd=ROOT,
                        env=env, capture_output=True, text=True, timeout=240)

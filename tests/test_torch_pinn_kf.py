@@ -7,8 +7,12 @@ dimension 16).
 The JAX draws are replayed: ``jax.random.split(rng, 8)`` and one
 ``bayes.sample_params`` per key, which equals the vmapped draws of
 ``bayes.sample_uvp``, converted by ``convert.draw_from_jax``.
-(``sample_params`` folds ``hash(key)`` into the key; Python salts string
-hashes per process, so the replay holds within one process only.)"""
+(``sample_params`` folds ``hash(key)`` into the key, and Python salts
+string hashes per process; the module fixture ``unsalted_jax_draws`` puts
+a salt-free ``hash`` into that module's globals, so the JAX draws, and the
+results compared here, are the same in every process.)"""
+
+import zlib
 
 import jax
 import jax.numpy as jnp
@@ -56,7 +60,18 @@ _FAST_COMPILE = {'xla_backend_optimization_level': 0,
 
 
 @pytest.fixture(scope='module')
-def slice_pair():
+def unsalted_jax_draws():
+  """``bayes.sample_params`` of the JAX package with ``hash`` replaced, in
+  its module's globals only, by CRC-32, which no process salts: its draws
+  no longer depend on ``PYTHONHASHSEED``.  The JAX file is not edited."""
+  with pytest.MonkeyPatch.context() as patch:
+    patch.setattr(jax_bayes, 'hash', lambda key: zlib.crc32(key.encode()),
+                  raising=False)
+    yield
+
+
+@pytest.fixture(scope='module')
+def slice_pair(unsalted_jax_draws):
   jax_config, torch_config = port_parity.tiny_pinn_configs()
   params = port_parity.randomized_params(
       port_parity.pinn_param_shapes(jax_config), seed=1)
