@@ -3,7 +3,8 @@ eval steps.
 
 Counterpart of the JAX package's ``core/losses.py``: ``get_optimizer``
 (Adam with linear warmup, global-norm clipping and coupled weight decay,
-with optax's semantics), ``get_sde_loss_fn`` and ``get_step_fn``.  The
+with optax's semantics), ``MultiTransform`` (optax's ``multi_transform``
+over such optimizers), ``get_sde_loss_fn`` and ``get_step_fn``.  The
 SMLD and DDPM losses (``continuous=False``) are not ported yet
 (ROADMAP.md A.10).
 
@@ -15,7 +16,7 @@ draws, so that a test can feed in the numbers another implementation drew.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -94,17 +95,46 @@ class Optimizer:
     opt_state.count = count
 
 
-def get_optimizer(config) -> Optimizer:
-  """Adam with linear warmup and global-norm clipping from ``config.optim``
-  (the JAX function's ``lr_mul`` and B-PINN options wait for PINN
-  training, ROADMAP.md A.12)."""
-  if config.optim.optimizer != 'Adam':
+@dataclasses.dataclass(frozen=True)
+class MultiTransform:
+  """optax ``multi_transform``: each parameter goes to the optimizer of its
+  label, ``label_fn(name)``, and each optimizer sees only its own group,
+  so a clip takes the global norm of its group alone.  The state is
+  ``{label: AdamState}``, keyed as optax's ``inner_states``."""
+  transforms: Dict[str, Optimizer]
+  label_fn: Callable[[str], str]
+
+  def _group(self, params: Params, label: str) -> Params:
+    return {k: v for k, v in params.items() if self.label_fn(k) == label}
+
+  def init(self, params: Params) -> Dict[str, AdamState]:
+    return {label: tx.init(self._group(params, label))
+            for label, tx in self.transforms.items()}
+
+  def apply_(self, grads: Sequence[torch.Tensor],
+             opt_state: Dict[str, AdamState], params: Params) -> None:
+    """One update of each group, in place (``grads`` in the order of
+    ``params``)."""
+    grads = dict(zip(params, grads))
+    for label, tx in self.transforms.items():
+      group = self._group(params, label)
+      tx.apply_([grads[k] for k in group], opt_state[label], group)
+
+
+def get_optimizer(config, lr_mul: float = 1.0,
+                  is_bpinn: bool = False) -> Optimizer:
+  """Adam with linear warmup and global-norm clipping from ``config.optim``:
+  the learning rate ``lr * lr_mul`` and the decay ``weight_decay``, or
+  with ``is_bpinn`` ``bpinn_lr * lr_mul`` and ``bpinn_weight_decay``."""
+  optim = config.optim
+  if optim.optimizer != 'Adam':
     raise NotImplementedError(
-        f'Optimizer {config.optim.optimizer} not supported yet!')
-  return Optimizer(lr=config.optim.lr, warmup=config.optim.warmup,
-                   grad_clip=config.optim.grad_clip,
-                   weight_decay=config.optim.weight_decay,
-                   b1=config.optim.beta1, eps=config.optim.eps)
+        f'Optimizer {optim.optimizer} not supported yet!')
+  lr, decay = ((optim.bpinn_lr, optim.bpinn_weight_decay) if is_bpinn
+               else (optim.lr, optim.weight_decay))
+  return Optimizer(lr=lr * lr_mul, warmup=optim.warmup,
+                   grad_clip=optim.grad_clip, weight_decay=decay,
+                   b1=optim.beta1, eps=optim.eps)
 
 
 def _reduce_op(reduce_mean: bool):

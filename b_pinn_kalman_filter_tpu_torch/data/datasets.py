@@ -1,21 +1,28 @@
-"""Datasets and loaders giving NHWC numpy batches: the CIFAR-10 path.
+"""Datasets and loaders giving NHWC numpy batches: the CIFAR-10 and PDE
+paths, and the inpainting masks.
 
 The port's own copy of the parts of the JAX package's ``data/datasets.py``
-that training the flagship reads: ``get_dataset`` (its CIFAR10 branch),
-``NumpyLoader`` (epoch reshuffles, full batches), the native reader of the
-``cifar-10-batches-py`` pickles, and the synthetic stand-in,
-``SyntheticImages`` over ``smooth_field``, which ``get_dataset`` returns
-when no CIFAR-10 files are present (the same seed gives the same bits as
-the JAX package).  Left out: the ``PrefetchLoader`` thread that overlaps
-batch assembly with the device step there (the port's train loop fetches
-each batch in turn), the thread pool of ``NumpyLoader(num_workers>1)``
-(which gives the same batches), and the other datasets.
+that training the flagship and the PINN read: ``get_dataset`` (its CIFAR10
+and PDE branches), ``NumpyLoader`` (epoch reshuffles, full batches), the
+native reader of the ``cifar-10-batches-py`` pickles, and the synthetic
+stand-in, ``SyntheticImages`` over ``smooth_field``, which ``get_dataset``
+returns when no CIFAR-10 files are present (the same seed gives the same
+bits as the JAX package); ``PDEDataset`` over a synthetic Navier-Stokes
+rollout; ``MaskIterator`` with the MNIST idx reader.  Left out: the
+``PrefetchLoader`` thread that overlaps batch assembly with the device
+step there (the port's train loops fetch each batch in turn), the thread
+pool of ``NumpyLoader(num_workers>1)`` (which gives the same batches), the
+NetCDF reader of the PDE branch (the synthetic rollout stands in for the
+simulation file), and the other datasets.
 """
 
 from __future__ import annotations
 
+import gzip
 import os
 import pickle
+import struct
+import tempfile
 from typing import Iterator, Optional, Tuple
 
 import numpy as np
@@ -128,6 +135,140 @@ class NumpyLoader:
         yield fetch([int(i) for i in order[start:start + self.batch_size]])
 
 
+def random_crop(rng: np.random.Generator, img: np.ndarray,
+                size: int) -> np.ndarray:
+  """Random spatial crop (zero-padded up to ``size`` first) of an
+  (..., H, W) array: the row, then the column, from ``rng``."""
+  h, w = img.shape[-2], img.shape[-1]
+  if h < size or w < size:
+    pads = [(0, 0)] * (img.ndim - 2) + [(0, max(0, size - h)),
+                                        (0, max(0, size - w))]
+    img = np.pad(img, pads)
+    h, w = img.shape[-2], img.shape[-1]
+  i = int(rng.integers(0, h - size + 1))
+  j = int(rng.integers(0, w - size + 1))
+  return img[..., i:i + size, j:j + size]
+
+
+class PDEDataset:
+  """Consecutive frames of a Navier-Stokes rollout ``data`` (T, 6, H, W)
+  whose channels are coordx, coordy, density, u, v, p.
+
+  Item ``idx`` is ``(f1, f2, x, y, t, target)``: the densities of frames
+  ``base`` and ``base + 1``, the coordinates of the second, ``t = idx +
+  1``, and the target (u, v, p) of the second, each HWC float32, all
+  cropped alike to ``image_size`` from the seed ``seed * 1_000_003 +
+  idx``.  The train split starts at frame ``trim`` and ends at 90% of
+  the rollout, the test split takes the last 10%.
+  """
+
+  def __init__(self, data: np.ndarray, image_size: int, split: str = 'train',
+               trim: int = 160, seed: int = 0):
+    self.data = data
+    self.len = len(data)
+    self.split = split
+    self.offset = trim
+    self.image_size = image_size
+    self.seed = seed
+
+  def __len__(self):
+    n = (int(self.len * 0.9) - self.offset if self.split == 'train'
+         else int(self.len * 0.1))
+    return max(n - 1, 0)
+
+  def __getitem__(self, idx):
+    base = (idx + self.offset if self.split == 'train'
+            else int(self.len * 0.9) + idx)
+    rng = np.random.default_rng(self.seed * 1_000_003 + idx)
+    sample = random_crop(rng, self.data[base:base + 2], self.image_size)
+    x_p, x_t = sample[0], sample[1]
+
+    def hwc(a):
+      return np.ascontiguousarray(a.transpose(1, 2, 0)).astype(np.float32)
+
+    return (hwc(x_p[2:3]), hwc(x_t[2:3]), hwc(x_t[0:1]), hwc(x_t[1:2]),
+            np.float32(idx + 1), hwc(x_t[3:]))
+
+
+def cached_ns_rollout(n_frames: int, h: int, w: int, seed: int,
+                      device=None) -> np.ndarray:
+  """The synthetic rollout (T, 6, H, W) of ``data/ns_rollout.py``, stepped
+  on ``device`` (default ``cuda``), kept in ``data_dir()`` as
+  ``ns_rollout_port_{T}x{H}x{W}_{seed}.npy`` and read from there when
+  present (a name of the port's own: the JAX package keeps its rollout,
+  stepped by another stepper, under another)."""
+  from b_pinn_kalman_filter_tpu_torch.data.ns_rollout import ns_rollout
+  base = data_dir()
+  cache = os.path.join(base, f'ns_rollout_port_{n_frames}x{h}x{w}_{seed}.npy')
+  if os.path.exists(cache):
+    return np.load(cache)
+  frames = ns_rollout(n_frames, h, w, seed, device=device).cpu().numpy()
+  try:
+    os.makedirs(base, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=base, suffix='.npy')
+    with os.fdopen(fd, 'wb') as f:
+      np.save(f, frames)
+    os.replace(tmp, cache)   # a reader never sees half a file
+  except OSError:
+    pass
+  return frames
+
+
+def load_mnist_idx(root: str) -> Optional[np.ndarray]:
+  """MNIST ``train-images-idx3-ubyte[.gz]`` under ``root`` or
+  ``root/MNIST/raw``: (N, 28, 28) uint8, or None where it is missing."""
+  for base in (root, os.path.join(root, 'MNIST', 'raw')):
+    for name in ('train-images-idx3-ubyte', 'train-images-idx3-ubyte.gz'):
+      path = os.path.join(base, name)
+      if not os.path.exists(path):
+        continue
+      opener = gzip.open if name.endswith('.gz') else open
+      with opener(path, 'rb') as f:
+        magic, n, rows, cols = struct.unpack('>IIII', f.read(16))
+        if magic != 2051:
+          continue
+        buf = f.read(n * rows * cols)
+      return np.frombuffer(buf, np.uint8).reshape(n, rows, cols)
+  return None
+
+
+class MaskIterator:
+  """Binary inpainting masks (H, W, 1) float32, one per ``next()``.
+
+  With ``inverse.operator`` 'inpaint' and MNIST under :func:`data_dir`, a
+  random digit, nearest-resized to ``data.image_size``; else a uniform
+  random field.  The mask is where the image exceeds ``inverse.ratio``,
+  or where it does not unless ``inverse.invert``.  One numpy generator
+  seeded with ``config.seed + 12345`` draws them all.
+  """
+
+  def __init__(self, config):
+    self.size = config.data.image_size
+    self.ratio = config.inverse.ratio
+    self.invert = config.inverse.invert
+    self.rng = np.random.default_rng(config.seed + 12345)
+    self._mnist = (load_mnist_idx(data_dir())
+                   if config.inverse.operator == 'inpaint' else None)
+
+  def next(self) -> np.ndarray:
+    if self._mnist is not None:
+      idx = int(self.rng.integers(0, len(self._mnist)))
+      img = np.asarray(self._mnist[idx], np.float32) / 255.0
+      ys = (np.arange(self.size) * img.shape[0] / self.size).astype(int)
+      xs = (np.arange(self.size) * img.shape[1] / self.size).astype(int)
+      img = img[np.ix_(ys, xs)]
+    else:
+      img = self.rng.random((self.size, self.size), np.float32)
+    mask = img > self.ratio
+    if not self.invert:
+      mask = ~mask
+    return mask.astype(np.float32)[..., None]
+
+
+def get_mask_dataset(config) -> MaskIterator:
+  return MaskIterator(config)
+
+
 def load_cifar10_batches(root: str):
   """(train, test) ``ArrayImages`` from the standard
   ``root/cifar-10-batches-py`` pickles, or None where they are missing."""
@@ -164,27 +305,40 @@ def load_cifar10_batches(root: str):
   return ArrayImages(*train), ArrayImages(*test)
 
 
-def get_dataset(config):
-  """(train loader, eval loader) of NHWC float32 [0, 1] batches of
+def get_dataset(config, device=None):
+  """(train loader, eval loader) of NHWC float32 batches of
   ``training.batch_size``, as the JAX package's ``get_dataset`` gives the
-  train loop.
+  train loops.
 
-  CIFAR10 only: the local ``cifar-10-batches-py`` files under
-  :func:`data_dir` where present, else ``SyntheticImages`` (4096 train and
-  512 test items, seeds ``config.seed`` and ``config.seed + 1``).  As in
-  the JAX package, ``data.uniform_dequantization`` and ``data.random_flip``
-  are not applied on this branch.
+  CIFAR10: [0, 1] images from the local ``cifar-10-batches-py`` files
+  under :func:`data_dir` where present, else ``SyntheticImages`` (4096
+  train and 512 test items, seeds ``config.seed`` and ``config.seed +
+  1``); as in the JAX package, ``data.uniform_dequantization`` and
+  ``data.random_flip`` are not applied on this branch.
+
+  PDE: ``PDEDataset`` tuples over the synthetic rollout of ``max(trim +
+  64, 400)`` frames at 200 x ``2 * image_size`` (seed ``config.seed``,
+  stepped on ``device``, default ``cuda``; :func:`cached_ns_rollout`),
+  ``trim = data.time_trim``, the test split's crops from ``config.seed +
+  1``.
   """
-  if config.data.dataset != 'CIFAR10':
-    raise NotImplementedError(
-        f'dataset {config.data.dataset} is not ported yet: ROADMAP.md A.14')
   batch_size = config.training.batch_size
   size, channels = config.data.image_size, config.data.num_channels
-  datasets = load_cifar10_batches(data_dir())
-  if datasets is None:
-    datasets = (SyntheticImages(4096, size, channels, config.seed),
-                SyntheticImages(512, size, channels, config.seed + 1))
-  train_ds, test_ds = datasets
+  if config.data.dataset == 'CIFAR10':
+    datasets = load_cifar10_batches(data_dir())
+    if datasets is None:
+      datasets = (SyntheticImages(4096, size, channels, config.seed),
+                  SyntheticImages(512, size, channels, config.seed + 1))
+    train_ds, test_ds = datasets
+  elif config.data.dataset == 'PDE':
+    trim = int(config.data.time_trim)
+    data = cached_ns_rollout(max(trim + 64, 400), 200, 2 * size,
+                             config.seed, device=device)
+    train_ds = PDEDataset(data, size, 'train', trim, config.seed)
+    test_ds = PDEDataset(data, size, 'test', trim, config.seed + 1)
+  else:
+    raise NotImplementedError(
+        f'dataset {config.data.dataset} is not ported yet: ROADMAP.md A.5')
   train_loader = NumpyLoader(train_ds, batch_size, shuffle=True,
                              seed=config.seed)
   test_loader = NumpyLoader(test_ds, batch_size, shuffle=False,

@@ -1,4 +1,5 @@
-"""Synthetic Navier–Stokes rollouts, the ground truth of the UKF run.
+"""Synthetic Navier–Stokes rollouts, the ground truth of the UKF run and
+the frames of the PDE dataset.
 
 The port's own copy of the stepping path of the JAX package's
 ``data/datasets.py`` ``_generate_ns_rollout``

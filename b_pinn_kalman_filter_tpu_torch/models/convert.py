@@ -10,6 +10,7 @@ that no leaf sets, and on a shape that differs.
 
 from __future__ import annotations
 
+import collections
 from typing import Any, Dict, Mapping
 
 import numpy as np
@@ -20,12 +21,14 @@ from b_pinn_kalman_filter_tpu_torch.train.state import AdamState, TrainState
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str = '') -> Dict[str, Any]:
+  """``{dotted path: leaf}``; a leaf without a shape (optax's
+  ``MaskedNode``, where another group owns the subtree) is left out."""
   flat = {}
   for key, value in tree.items():
     path = f'{prefix}{key}'
     if isinstance(value, Mapping):
       flat.update(_flatten(value, path + '.'))
-    else:
+    elif hasattr(value, 'shape'):
       flat[path] = value
   return flat
 
@@ -93,7 +96,12 @@ def bpinn_params_from_jax(tree: Mapping[str, Any], model: nn.Module) -> dict:
 
 def _adam_parts(opt_state):
   """The ``ScaleByAdamState`` (``mu``, ``nu``, ``count``) inside an optax
-  chain's state, found by its fields (the port imports no optax)."""
+  chain's state, or ``{label: ScaleByAdamState}`` inside a
+  ``multi_transform``'s (its ``inner_states``), found by their fields (the
+  port imports no optax)."""
+  inner = getattr(opt_state, 'inner_states', None)
+  if isinstance(inner, Mapping):
+    return {label: _adam_parts(s) for label, s in inner.items()}
   if all(hasattr(opt_state, k) for k in ('mu', 'nu', 'count')):
     return opt_state
   if isinstance(opt_state, (tuple, list)):
@@ -104,23 +112,45 @@ def _adam_parts(opt_state):
   return None
 
 
+def _adam_state(adam, params: Mapping[str, torch.Tensor], what: str
+                ) -> AdamState:
+  if adam is None:
+    raise ValueError(f'{what}no Adam state (mu, nu, count) in the '
+                     'optimizer state')
+  return AdamState(count=int(np.asarray(adam.count)),
+                   mu=_tensors_from_jax(adam.mu, params, f'{what}mu: '),
+                   nu=_tensors_from_jax(adam.nu, params, f'{what}nu: '))
+
+
 def train_state_from_jax(jax_state, model: nn.Module) -> TrainState:
   """A JAX package ``TrainState`` (params, the optax Adam moments and
   count, the EMA, the step) as the port's ``train.state.TrainState`` over
-  ``model``'s parameter names, on their devices."""
+  ``model``'s parameter names, on their devices.  A ``multi_transform``
+  state becomes ``{label: AdamState}``, each over the names its group's
+  moments hold (the others are optax's masked nodes); every parameter
+  must fall in exactly one group."""
   params = dict(model.named_parameters())
   adam = _adam_parts(jax_state.opt_state)
-  if adam is None:
-    raise ValueError('no Adam state (mu, nu, count) in the optimizer state')
+  if isinstance(adam, Mapping):
+    opt_state = {}
+    for label, part in adam.items():
+      names = set(_flatten(part.mu)) if part is not None else set()
+      opt_state[label] = _adam_state(
+          part, {k: v for k, v in params.items() if k in names},
+          f'{label}: ')
+    counts = collections.Counter(k for s in opt_state.values() for k in s.mu)
+    if set(counts) != set(params) or max(counts.values()) > 1:
+      raise ValueError('the optimizer groups do not cover each parameter '
+                       'exactly once')
+  else:
+    opt_state = _adam_state(adam, params, '')
   trees = {what: _tensors_from_jax(tree, params, f'{what}: ')
-           for what, tree in (('params', jax_state.params), ('mu', adam.mu),
-                              ('nu', adam.nu),
+           for what, tree in (('params', jax_state.params),
                               ('ema_params', jax_state.ema_params))}
   return TrainState(step=int(np.asarray(jax_state.step)),
                     params={k: v.requires_grad_()
                             for k, v in trees['params'].items()},
-                    opt_state=AdamState(count=int(np.asarray(adam.count)),
-                                        mu=trees['mu'], nu=trees['nu']),
+                    opt_state=opt_state,
                     ema_params=trees['ema_params'],
                     ema_rate=float(jax_state.ema_rate))
 
@@ -139,9 +169,14 @@ def _unflatten(flat: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
 def train_state_to_jax(state) -> Dict[str, Any]:
   """A copy of the port's train state as the JAX package's trees of numpy
   arrays: ``{step, params, mu, nu, count, ema_params}``, each tree nested
-  by the flax path."""
-  return dict(step=state.step, params=_unflatten(state.params),
-              mu=_unflatten(state.opt_state.mu),
-              nu=_unflatten(state.opt_state.nu),
-              count=state.opt_state.count,
-              ema_params=_unflatten(state.ema_params))
+  by the flax path; with optimizer groups ``mu``, ``nu`` and ``count`` are
+  ``{label: ...}``."""
+  opt = state.opt_state
+  if isinstance(opt, AdamState):
+    mu, nu, count = _unflatten(opt.mu), _unflatten(opt.nu), opt.count
+  else:
+    mu = {label: _unflatten(s.mu) for label, s in opt.items()}
+    nu = {label: _unflatten(s.nu) for label, s in opt.items()}
+    count = {label: s.count for label, s in opt.items()}
+  return dict(step=state.step, params=_unflatten(state.params), mu=mu,
+              nu=nu, count=count, ema_params=_unflatten(state.ema_params))

@@ -6,8 +6,10 @@ are the flax auto-names (``InferenceUnit_0`` is the coarsest level;
 ``DoubleRes_0`` of the PressureNet is its one shared flow-feature module),
 so ``convert.params_from_jax`` copies a flax tree name for name.  Every
 ``Matching`` calls the cost volume ``ops.correlation`` (kernel K3 on the
-card); the convolutions are plain f32 ``F.conv2d``, as the JAX package
-leaves them to XLA.
+card, its backward the K3 backward kernels) or, with ``kernels=False``,
+its plain version; the convolutions are plain f32 ``F.conv2d``, as the JAX
+package leaves them to XLA.  ``multiscale_data_mse`` and
+``pressure_data_mse`` are the phase-1 PINN losses.
 """
 
 from __future__ import annotations
@@ -22,7 +24,8 @@ import torch.nn.functional as F
 from b_pinn_kalman_filter_tpu_torch.models import layers
 from b_pinn_kalman_filter_tpu_torch.models.layers_ncsn import ResidualBlock
 from b_pinn_kalman_filter_tpu_torch.ops.conv3x3 import conv_nhwc_plain
-from b_pinn_kalman_filter_tpu_torch.ops.correlation import correlation
+from b_pinn_kalman_filter_tpu_torch.ops.correlation import (
+    correlation, correlation_plain)
 from b_pinn_kalman_filter_tpu_torch.ops.grid_sample import (
     grid_sample_2d, make_normalized_grid)
 
@@ -179,10 +182,12 @@ class FlowUpsample(nn.Module):
 
 class Matching(nn.Module):
   """Cost-volume matching: upsample the coarser flow and warp f2 by it,
-  then the correlation (kernel K3) and a field head."""
+  then the correlation (kernel K3, or its plain version without
+  ``kernels``) and a field head."""
 
-  def __init__(self, config, level: int, first: bool):
+  def __init__(self, config, level: int, first: bool, kernels: bool = True):
     super().__init__()
+    self.correlation = correlation if kernels else correlation_plain
     self.dt = config.data.dt * 0.5 ** level
     if not first:
       self.FlowUpsample_0 = FlowUpsample()
@@ -194,7 +199,8 @@ class Matching(nn.Module):
       feature2 = project(feature2, flow, -self.dt)
     else:
       flow = 0.0
-    corr = F.leaky_relu(correlation(feature1, feature2, stride=1), 0.01)
+    corr = F.leaky_relu(self.correlation(feature1, feature2, stride=1),
+                        0.01)
     return flow + self.ConvField_0(corr)
 
 
@@ -215,10 +221,10 @@ class SubpixelRefinement(nn.Module):
 class InferenceUnit(nn.Module):
   """Matching then refinement at one pyramid level."""
 
-  def __init__(self, config, level: int, first: bool):
+  def __init__(self, config, level: int, first: bool, kernels: bool = True):
     super().__init__()
     channels = config.model.feature_nums[level]
-    self.Matching_0 = Matching(config, level, first)
+    self.Matching_0 = Matching(config, level, first, kernels)
     self.SubpixelRefinement_0 = SubpixelRefinement(config, level, channels)
 
   def forward(self, feature1, feature2, flow=None):
@@ -241,16 +247,17 @@ class FinalUpsample(nn.Module):
 
 class FlowNet(nn.Module):
   """Coarse-to-fine optical-flow cascade.  Returns the flows of every
-  level, coarsest first, then the full-resolution flow."""
+  level, coarsest first, then the full-resolution flow.  ``kernels``
+  selects the cost volume's kernel (the default) or its plain version."""
 
-  def __init__(self, config):
+  def __init__(self, config, kernels: bool = True):
     super().__init__()
     self.config = config
     self.n_levels = len(config.model.feature_nums)
     self.FeatureExtractor_0 = FeatureExtractor(config)
     for i, level in enumerate(reversed(range(self.n_levels))):
       setattr(self, f'InferenceUnit_{i}',
-              InferenceUnit(config, level, first=i == 0))
+              InferenceUnit(config, level, first=i == 0, kernels=kernels))
     self.FinalUpsample_0 = FinalUpsample(config.data.num_channels)
 
   def forward(self, f1, f2, x, y, t, size=None) -> List[Tensor]:
@@ -271,6 +278,33 @@ class FlowNet(nn.Module):
       size = (self.config.data.image_size,) * 2
     cascaded_flow.append(self.FinalUpsample_0(f1, f2, flow, size))
     return cascaded_flow
+
+
+def _mse(a: Tensor, b: Tensor) -> Tensor:
+  return torch.mean((a - b) ** 2)
+
+
+def multiscale_data_mse(veloc_pred: Sequence[Tensor], target: Tensor
+                        ) -> Tensor:
+  """Multi-scale flow loss: the flows of ``veloc_pred`` finest first,
+  weighted 12.7, 5.5, 4.35, 3.9, 3.4, 1.1 and scaled by 1 / 2**i against
+  the first two channels of ``target`` (B, H, W, >= 2), which is halved
+  (every channel, bilinearly) after each term."""
+  h, w = veloc_pred[-1].shape[1], veloc_pred[-1].shape[2]
+  weights = [12.7, 5.5, 4.35, 3.9, 3.4, 1.1][:len(veloc_pred)]
+  v_loss = 0.0
+  for i, weight in enumerate(weights):
+    scale = 1.0 / (2 ** i)
+    v_loss = v_loss + weight * _mse(veloc_pred[-1 - i] * scale,
+                                    target[..., :2] * scale)
+    h, w = h // 2, w // 2
+    target = resize_bilinear(target, (h, w))
+  return v_loss
+
+
+def pressure_data_mse(pressure: Tensor, target: Tensor) -> Tensor:
+  """Pressure loss against channel 2 of ``target``."""
+  return _mse(pressure, target[..., 2:3])
 
 
 class DoubleRes(nn.Module):

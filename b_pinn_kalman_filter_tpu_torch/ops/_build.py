@@ -20,12 +20,14 @@ import tempfile
 from typing import Dict, Iterable, List
 
 import torch
+import torch.autograd.forward_ad as fwAD
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, 'csrc')
 BUILD_DIR = os.path.join(_PKG, '_build')
 SOURCES = ('conv3x3', 'conv3x3_wgmma', 'groupnorm', 'groupnorm_pergroup',
-           'correlation', 'correlation_tile', 'ns_step', 'ns_step_staged')
+           'correlation', 'correlation_bwd', 'correlation_tile', 'ns_step',
+           'ns_step_staged')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
@@ -129,3 +131,20 @@ def forward_only(what: str, *tensors) -> None:
     raise RuntimeError(
         f'{what} is forward-only: its backward comes with the training '
         'slice.  Call it under torch.no_grad() or torch.inference_mode().')
+
+
+def tangents(what: str, *tensors) -> bool:
+  """Whether any of ``tensors`` carries a forward-mode tangent
+  (``torch.autograd.forward_ad`` or ``torch.func.jvp``).
+
+  Raises ``NotImplementedError`` for such a tensor off the CPU: the kernels
+  have no forward-mode rule yet (ROADMAP.md B.3), and a launch would drop
+  the tangent without a word.  On the CPU the plain versions carry it.
+  """
+  dual = [t for t in tensors
+          if t is not None and fwAD.unpack_dual(t).tangent is not None]
+  if any(t.device.type != 'cpu' for t in dual):
+    raise NotImplementedError(
+        f'{what}: forward-mode tangents through the kernel are not '
+        'supported yet (ROADMAP.md B.3); use reverse mode')
+  return bool(dual)

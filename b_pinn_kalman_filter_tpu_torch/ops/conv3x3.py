@@ -148,8 +148,11 @@ def conv3x3(x: torch.Tensor, kernel: torch.Tensor,
   """x (B,H,W,Cin), kernel (3,3,Cin,Cout), bias (Cout,) -> (B,H,W,Cout).
 
   f32 or bf16 ``x``; f32 accumulation; output in ``x.dtype``.
-  Differentiable once in each input (see the module docstring).
+  Differentiable once in each input (see the module docstring).  A tensor
+  with a forward-mode tangent takes the plain version on the CPU and
+  raises on the card (ROADMAP.md B.3).
   """
+  _build.tangents('conv3x3', x, kernel, bias)
   if torch.is_grad_enabled() and any(
       t is not None and t.requires_grad for t in (x, kernel, bias)):
     return _Conv3x3.apply(x, kernel, bias)

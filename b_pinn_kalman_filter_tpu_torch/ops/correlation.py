@@ -19,8 +19,28 @@ card), as the JAX package's ``jax.vmap`` over B-PINN draws folds them into
 one cost volume; the rule is the same on every device.
 ``correlation.launches`` counts the launches and ``correlation.batches``
 the launches by batch size.  :func:`correlation_plan` sizes the kernel's
-tiles and cluster.  The kernel is forward only: its backward comes with
-PINN training.
+tiles and cluster.
+
+Gradients.  With a cotangent d (B, H, W, 49) of the output, the input
+gradients are ``df1 = B1(d, f2)`` and ``df2 = B2(d, f1)``::
+
+    B1(d, g)[b, y, x, c] = (1/C) sum_k d[b, y, x, k] g[b, y+dy_k, x+dx_k, c]
+    B2(d, h)[b, y, x, c] = (1/C) sum_k d[b, y-dy_k, x-dx_k, k]
+                                       * h[b, y-dy_k, x-dx_k, c]
+
+(:func:`correlation_df1`, :func:`correlation_df2`; on the card the two
+entry points of ``csrc/correlation_bwd.cu``, on the CPU
+:func:`correlation_df1_plain` and :func:`correlation_df2_plain`, explicit
+formulas, not autograd of the forward).  The three maps are bilinear and
+close under differentiation: against a cotangent G of ``B1(d, g)`` the
+gradients are ``K3(G, g)`` for d and ``B2(d, G)`` for g; against H of
+``B2(d, h)``, ``K3(h, H)`` for d and ``B1(d, H)`` for h.  So each is a
+``torch.autograd.Function`` whose backward calls the other two, and
+derivatives of any order stay on the kernels.  Each has the vmap rule
+that folds the mapped dimensions into the batch.  ``correlation_df1`` and
+``correlation_df2`` count their launches in ``.launches``.  Forward-mode
+tangents take the plain version on the CPU and raise on the card
+(ROADMAP.md B.3).
 """
 
 from __future__ import annotations
@@ -40,6 +60,10 @@ SHIFTS = (2 * _D + 1) ** 2
 _SIGNATURES = {
     'correlation_f32': (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 11
                        + (ctypes.c_void_p,),
+}
+_BWD_SIGNATURES = {
+    name: (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 4 + (ctypes.c_void_p,)
+    for name in ('correlation_df1_f32', 'correlation_df2_f32')
 }
 _TILE_SIGNATURES = {
     'correlation_tile_f32': (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 4
@@ -75,6 +99,39 @@ def correlation_plain(f1: torch.Tensor, f2: torch.Tensor,
       shifted = f2p[:, oy:oy + H, ox:ox + W, :][:, ::s, ::s, :]
       outs.append((f1s * shifted).mean(dim=-1))
   return torch.stack(outs, dim=-1)
+
+
+def _shifts():
+  """(k, dy, dx) of the 49 shifts, k = (dy + 3) * 7 + (dx + 3)."""
+  side = range(-_D, _D + 1)
+  return [(k, dy, dx) for k, (dy, dx) in enumerate(
+      (dy, dx) for dy in side for dx in side)]
+
+
+def correlation_df1_plain(d: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+  """Plain PyTorch version of B1: d (B, H, W, 49), g (B, H, W, C) ->
+  ``(1/C) sum_k d[..., k] * g shifted by +s_k`` (B, H, W, C)."""
+  B, H, W, C = g.shape
+  gp = F.pad(g, (0, 0, _D, _D, _D, _D))
+  out = torch.zeros_like(g)
+  for k, dy, dx in _shifts():
+    out = out + d[..., k:k + 1] * gp[:, _D + dy:_D + dy + H,
+                                     _D + dx:_D + dx + W, :]
+  return out / C
+
+
+def correlation_df2_plain(d: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+  """Plain PyTorch version of B2: d (B, H, W, 49), h (B, H, W, C) ->
+  ``(1/C) sum_k (d[..., k] * h) shifted by -s_k`` (B, H, W, C)."""
+  B, H, W, C = h.shape
+  pad = (0, 0, _D, _D, _D, _D)
+  dp, hp = F.pad(d, pad), F.pad(h, pad)
+  out = torch.zeros_like(h)
+  for k, dy, dx in _shifts():
+    oy, ox = _D - dy, _D - dx
+    out = out + (dp[:, oy:oy + H, ox:ox + W, k:k + 1]
+                 * hp[:, oy:oy + H, ox:ox + W, :])
+  return out / C
 
 
 def _pad_col(x: int, strip: int) -> int:
@@ -165,9 +222,43 @@ def _cost_volume(f1: torch.Tensor, f2: torch.Tensor) -> torch.Tensor:
   return out
 
 
+def _gradient(which: str, d: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+  """B1 (``which`` 'df1') or B2 ('df2') of d (B, H, W, 49) and g (B, H, W,
+  C): the kernel on a CUDA tensor, the plain version on a CPU one."""
+  if g.device.type == 'cpu':
+    return _PLAIN[which](d, g)
+  if g.device.type != 'cuda':
+    raise ValueError(f'correlation {which}: no kernel for device {g.device}')
+  _check(g, g)
+  if d.shape != g.shape[:3] + (SHIFTS,) or d.dtype != torch.float32:
+    raise ValueError(f'correlation {which}: d {tuple(d.shape)} {d.dtype} is '
+                     f'not float32 {tuple(g.shape[:3]) + (SHIFTS,)}')
+  if d.device != g.device:
+    raise ValueError(f'correlation {which}: d and g must share a device')
+  B, H, W, C = g.shape
+  d, g = _build.aligned(d), _build.aligned(g)
+  out = torch.empty_like(g)
+  lib = _build.load('correlation_bwd', _BWD_SIGNATURES)
+  stream = torch.cuda.current_stream(g.device).cuda_stream
+  err = getattr(lib, f'correlation_{which}_f32')(
+      d.data_ptr(), g.data_ptr(), out.data_ptr(), B, H, W, C, stream)
+  _build.check_launch(err, f'correlation {which}')
+  _PUBLIC[which].launches += 1
+  return out
+
+
+def _fold_vmap(fn, info, in_dims, *args):
+  """A vmap rule: the mapped dimension (broadcast where unmapped) folded
+  into the batch, so that a vmapped call is one call of ``fn``."""
+  n = info.batch_size
+  args = [t.expand(n, *t.shape) if d is None else t.movedim(d, 0)
+          for t, d in zip(args, in_dims)]
+  out = fn.apply(*(t.reshape(-1, *t.shape[2:]) for t in args))
+  return out.reshape(n, -1, *out.shape[1:]), 0
+
+
 class _CostVolume(torch.autograd.Function):
-  """The stride-1 cost volume with a vmap rule that folds the mapped
-  dimensions into the batch, so a vmapped call is one call."""
+  """K3(f1, f2) at stride 1; gradients B1(dout, f2) and B2(dout, f1)."""
 
   @staticmethod
   def forward(f1, f2):
@@ -175,25 +266,83 @@ class _CostVolume(torch.autograd.Function):
 
   @staticmethod
   def setup_context(ctx, inputs, output):
-    pass
+    ctx.save_for_backward(*inputs)
+
+  @staticmethod
+  def backward(ctx, grad):
+    f1, f2 = ctx.saved_tensors
+    return (_Df1.apply(grad, f2) if ctx.needs_input_grad[0] else None,
+            _Df2.apply(grad, f1) if ctx.needs_input_grad[1] else None)
 
   @staticmethod
   def vmap(info, in_dims, f1, f2):
-    n = info.batch_size
-    f1, f2 = (t.expand(n, *t.shape) if d is None else t.movedim(d, 0)
-              for t, d in zip((f1, f2), in_dims))
-    out = _CostVolume.apply(f1.reshape(-1, *f1.shape[2:]),
-                            f2.reshape(-1, *f2.shape[2:]))
-    return out.reshape(n, -1, *out.shape[1:]), 0
+    return _fold_vmap(_CostVolume, info, in_dims, f1, f2)
+
+
+class _Df1(torch.autograd.Function):
+  """B1(d, g); gradients K3(G, g) for d and B2(d, G) for g."""
+
+  @staticmethod
+  def forward(d, g):
+    return _gradient('df1', d, g)
+
+  @staticmethod
+  def setup_context(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+  @staticmethod
+  def backward(ctx, grad):
+    d, g = ctx.saved_tensors
+    return (_CostVolume.apply(grad, g) if ctx.needs_input_grad[0] else None,
+            _Df2.apply(d, grad) if ctx.needs_input_grad[1] else None)
+
+  @staticmethod
+  def vmap(info, in_dims, d, g):
+    return _fold_vmap(_Df1, info, in_dims, d, g)
+
+
+class _Df2(torch.autograd.Function):
+  """B2(d, h); gradients K3(h, H) for d and B1(d, H) for h."""
+
+  @staticmethod
+  def forward(d, h):
+    return _gradient('df2', d, h)
+
+  @staticmethod
+  def setup_context(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+  @staticmethod
+  def backward(ctx, grad):
+    d, h = ctx.saved_tensors
+    return (_CostVolume.apply(h, grad) if ctx.needs_input_grad[0] else None,
+            _Df1.apply(d, grad) if ctx.needs_input_grad[1] else None)
+
+  @staticmethod
+  def vmap(info, in_dims, d, h):
+    return _fold_vmap(_Df2, info, in_dims, d, h)
 
 
 def correlation(f1: torch.Tensor, f2: torch.Tensor,
                 stride: int = 1) -> torch.Tensor:
   """Cost volume of f1 against f2, (B, H, W, C) float32 each."""
-  if stride != 1:
+  if stride != 1 or _build.tangents('correlation', f1, f2):
     return correlation_plain(f1, f2, stride)
-  _build.forward_only('correlation', f1, f2)
   return _CostVolume.apply(f1, f2)
+
+
+def correlation_df1(d: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+  """B1(d, g): the gradient of the cost volume for f1, with g = f2."""
+  if _build.tangents('correlation_df1', d, g):
+    return correlation_df1_plain(d, g)
+  return _Df1.apply(d, g)
+
+
+def correlation_df2(d: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+  """B2(d, h): the gradient of the cost volume for f2, with h = f1."""
+  if _build.tangents('correlation_df2', d, h):
+    return correlation_df2_plain(d, h)
+  return _Df2.apply(d, h)
 
 
 def _correlation_tile(f1: torch.Tensor, f2: torch.Tensor) -> torch.Tensor:
@@ -214,3 +363,7 @@ def _correlation_tile(f1: torch.Tensor, f2: torch.Tensor) -> torch.Tensor:
 
 correlation.launches = 0
 correlation.batches = collections.Counter()
+correlation_df1.launches = 0
+correlation_df2.launches = 0
+_PLAIN = {'df1': correlation_df1_plain, 'df2': correlation_df2_plain}
+_PUBLIC = {'df1': correlation_df1, 'df2': correlation_df2}

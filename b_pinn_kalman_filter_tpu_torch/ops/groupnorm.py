@@ -107,8 +107,11 @@ def groupnorm_act(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                   eps: float = 1e-6) -> torch.Tensor:
   """x (B,H,W,C) -> act(GroupNorm(x)), same shape and dtype.
 
-  Differentiable once in ``x``, ``scale`` and ``bias``.
+  Differentiable once in ``x``, ``scale`` and ``bias``.  A tensor with a
+  forward-mode tangent takes the plain version on the CPU and raises on
+  the card (ROADMAP.md B.3).
   """
+  _build.tangents('groupnorm_act', x, scale, bias)
   if torch.is_grad_enabled() and any(
       t.requires_grad for t in (x, scale, bias)):
     return _GroupNormAct.apply(x, scale, bias, num_groups, act, eps)

@@ -4,10 +4,12 @@ Counterpart of the JAX package's ``train/checkpoint.py``, with its
 two-tier layout: numbered snapshots ``checkpoints/checkpoint_N`` and the
 preemption checkpoint ``checkpoints-meta/checkpoint``, which the train
 loop restores at start.  A checkpoint is one ``torch.save`` file of
-``{step, params, opt_state: {count, mu, nu}, ema_params}``, each tree a
-``{flax name: tensor}`` dict, written to a temporary file and renamed, so
-that a reader never sees half of one.  (The reference's ``.pth`` layout,
-which the JAX importers read, is ROADMAP.md A.14.)
+``{step, params, opt_state: {count, mu, nu}, ema_params}`` (with the
+groups of a ``MultiTransform``, ``opt_state: {label: {count, mu, nu}}``),
+each tree a ``{flax name: tensor}`` dict (the PINN's names carry their
+``flownet.`` or ``pressurenet.`` prefix), written to a temporary file and
+renamed, so that a reader never sees half of one.  (The reference's
+``.pth`` layout, which the JAX importers read, is ROADMAP.md A.7.)
 """
 
 from __future__ import annotations
@@ -16,17 +18,25 @@ import dataclasses
 import logging
 import os
 import tempfile
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
 from b_pinn_kalman_filter_tpu_torch.train.state import AdamState, TrainState
 
 
+def _groups(opt_state) -> Dict[Optional[str], AdamState]:
+  """``{label: AdamState}``; one ungrouped state under the label None."""
+  return ({None: opt_state} if isinstance(opt_state, AdamState)
+          else opt_state)
+
+
 def save_checkpoint(path: str, state: TrainState) -> None:
   """Write ``state`` to ``path`` (overwriting it)."""
+  groups = {label: dataclasses.asdict(s)
+            for label, s in _groups(state.opt_state).items()}
   tree = dict(step=state.step, params=state.params,
-              opt_state=dataclasses.asdict(state.opt_state),
+              opt_state=groups.get(None, groups),
               ema_params=state.ema_params)
   directory = os.path.dirname(os.path.abspath(path))
   os.makedirs(directory, exist_ok=True)
@@ -59,13 +69,21 @@ def restore_checkpoint(path: str, state: TrainState,
                       'as input', path)
     return state
   tree = torch.load(path, map_location='cpu', weights_only=True)
-  opt = tree['opt_state']
+  groups = _groups(state.opt_state)
+  saved_groups = ({None: tree['opt_state']} if 'mu' in tree['opt_state']
+                  else tree['opt_state'])
+  if saved_groups.keys() != groups.keys():
+    raise ValueError(f'{path}: optimizer groups '
+                     f'{sorted(map(str, saved_groups))} differ from the '
+                     f'state\'s {sorted(map(str, groups))}')
+  pairs = [('params', tree['params'], state.params),
+           ('ema_params', tree['ema_params'], state.ema_params)]
+  for label, group in groups.items():
+    saved = saved_groups[label]
+    pairs += [(f'mu {label}', saved['mu'], group.mu),
+              (f'nu {label}', saved['nu'], group.nu)]
   with torch.no_grad():
-    for what, saved, into in (
-        ('params', tree['params'], state.params),
-        ('mu', opt['mu'], state.opt_state.mu),
-        ('nu', opt['nu'], state.opt_state.nu),
-        ('ema_params', tree['ema_params'], state.ema_params)):
+    for what, saved, into in pairs:
       if saved.keys() != into.keys():
         raise ValueError(f'{path}: {what} names differ from the model\'s: '
                          f'{sorted(set(saved) ^ set(into))[:5]}')
@@ -75,10 +93,11 @@ def restore_checkpoint(path: str, state: TrainState,
                            f'{tuple(value.shape)}, the model '
                            f'{tuple(into[name].shape)}')
         into[name].copy_(value)
-  return dataclasses.replace(
-      state, step=int(tree['step']),
-      opt_state=AdamState(count=int(opt['count']), mu=state.opt_state.mu,
-                          nu=state.opt_state.nu))
+  opt_state = {label: AdamState(count=int(saved_groups[label]['count']),
+                                mu=group.mu, nu=group.nu)
+               for label, group in groups.items()}
+  return dataclasses.replace(state, step=int(tree['step']),
+                             opt_state=opt_state.get(None, opt_state))
 
 
 def latest_checkpoint_step(checkpoint_dir: str) -> Optional[int]:

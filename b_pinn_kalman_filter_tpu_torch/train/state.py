@@ -11,7 +11,7 @@ one in place, which saves a copy of every tree.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Union
 
 import numpy as np
 import torch
@@ -31,7 +31,7 @@ class AdamState:
 class TrainState:
   step: int
   params: Params
-  opt_state: AdamState
+  opt_state: Union[AdamState, Dict[str, AdamState]]
   ema_params: Params
   ema_rate: float = 0.999
 

@@ -2,7 +2,8 @@
 """Drive the PyTorch port on one NVIDIA card and check it.
 
     python3 chip_smoke.py [--steps N] [--requests R] [--cycles C]
-                          [--train-steps T] [--seed S] [--out DIR]
+                          [--train-steps T] [--prelim-steps P] [--seed S]
+                          [--out DIR]
 
 Run from the root of a checkout; it needs one CUDA card, ``nvcc`` and
 ``nvidia-smi``, and imports nothing of JAX or the JAX package.  Phases:
@@ -77,12 +78,29 @@ Run from the root of a checkout; it needs one CUDA card, ``nvcc`` and
    host seconds, and each under ``torch.profiler`` (host and device-busy
    seconds, idle share, device ops, top ops), and the filter profiled
    likewise;
-9. print the kernel table as one JSON line (every kernel of the paths and
+9. PINN phase 1 (``pinn/pinn_pde`` at full width: batch 64, 64x64,
+   FlowNet levels 16..128, f32, TF32 off): K3's backward (B1 and B2,
+   csrc/correlation_bwd.cu) against its plain versions at the five level
+   shapes at batch 64 and an odd shape, each run twice for its bits, and
+   one second-order product against autograd of the plain cost volume,
+   all timed as in phase 3; one prelim step's loss and gradients, kernel
+   path against plain path (the same randomised parameters, batch, mask
+   and noise), every leaf within the limit of the largest leaf's
+   gradient; then ``pinn_lib.train_prelim`` on the synthetic PDE data
+   (rolled out by K4 at 200x128 into an empty data directory) for steps
+   0..``--prelim-steps`` (default 40) with the cadence cut so that log,
+   eval, the preemption checkpoint and a snapshot fire, the launch counts
+   set to 0 before and read after (K3: per train step 5 forward, 5 B1 and
+   5 B2 launches, per eval 5 forward; K4: one per rollout frame); steady
+   step seconds and samples/s, the batch's assembly on the host, peak
+   memory, one steady step under ``torch.profiler``, then a resume from
+   the preemption checkpoint;
+10. print the kernel table as one JSON line (every kernel of the paths and
    every yardstick beside it), then the ``{"ok": true, ...}`` line.  With
    ``--out DIR`` the per-shape details go to ``DIR/chip_smoke.json``.
 
-Error limits (relative to max |reference|), in phases 3 to 5 and 7: f32 1e-4;
-bf16 3e-2, the bound tests/test_winograd.py holds bf16 Winograd to.
+Error limits (relative to max |reference|), in phases 3 to 5, 7 and 9: f32
+1e-4; bf16 3e-2, the bound tests/test_winograd.py holds bf16 Winograd to.
 
 Any failed phase exits non-zero without the last line.  Without a CUDA card
 it exits 2 and prints no result.
@@ -118,7 +136,9 @@ from b_pinn_kalman_filter_tpu_torch.ops import conv3x3 as k1
 from b_pinn_kalman_filter_tpu_torch.ops import correlation as k3
 from b_pinn_kalman_filter_tpu_torch.ops import groupnorm as k2
 from b_pinn_kalman_filter_tpu_torch.ops import ns_step as k4
-from b_pinn_kalman_filter_tpu_torch.pinn import bayes
+from b_pinn_kalman_filter_tpu_torch.pinn import bayes, pinn_lib
+from b_pinn_kalman_filter_tpu_torch.pinn import losses as pinn_losses
+from b_pinn_kalman_filter_tpu_torch.pinn.pinn import PINN
 from b_pinn_kalman_filter_tpu_torch.pinn.pinn_lib import init_pinn
 from b_pinn_kalman_filter_tpu_torch.train import run_lib
 from b_pinn_kalman_filter_tpu_torch.train import state as state_lib
@@ -139,6 +159,7 @@ NS_DT, NS_DX = 0.0025, 1 / 200
 DEVICE_FAMILIES = (
     ('K1 conv3x3', ('conv3x3_wgmma_kernel', 'conv3x3_nhwc_kernel')),
     ('K2 groupnorm_act', ('groupnorm_act_kernel',)),
+    ('K3 correlation backward', ('correlation_bwd_kernel',)),
     ('K3 correlation', ('correlation_kernel',)),
     ('K4 ns_step', ('ns_step_kernel', 'velocity_kernel',
                     'pressure_density_kernel')),
@@ -903,10 +924,293 @@ def train_phase(steps, train_steps, per_forward, seed):
   return report, launches, failures
 
 
+PRELIM_CONFIG = 'pinn/pinn_pde'
+
+
+def check_corr_bwd(shape, seed):
+  """K3's backward at (B, H, W, C), f32: B1 and B2 against their plain
+  versions (each kernel twice for its bits) and timed; one second-order
+  product, ``autograd.grad`` of ``((df1 + df2) * r).sum()`` taken with
+  ``create_graph``, in f1, f2 and dout, against autograd of the plain
+  cost volume."""
+  B, H, W, C = shape
+  g = torch.Generator(device='cuda').manual_seed(seed)
+  d = torch.randn((B, H, W, 49), generator=g, device='cuda')
+  a = torch.randn(shape, generator=g, device='cuda')
+  row = {}
+  for name, fn, plain in (
+      ('df1', k3.correlation_df1, k3.correlation_df1_plain),
+      ('df2', k3.correlation_df2, k3.correlation_df2_plain)):
+    with torch.inference_mode():
+      got, again, want = fn(d, a), fn(d, a), plain(d, a)
+      torch.cuda.synchronize()
+      abs_err, rel = rel_err(got, want)
+      times = timings(lambda: fn(d, a), lambda: plain(d, a))
+    row[name] = dict(times, max_abs_err=abs_err, rel_err=rel,
+                     same_bits_twice=bool(torch.equal(got, again)))
+  f1, f2, r = (torch.randn(shape, generator=g, device='cuda')
+               for _ in range(3))
+  dout = torch.randn((B, H, W, 49), generator=g, device='cuda')
+  results = []
+  for fn in (k3.correlation, k3.correlation_plain):
+    leaves = [t.clone().requires_grad_() for t in (f1, f2, dout)]
+    d1, d2 = torch.autograd.grad(fn(leaves[0], leaves[1]), leaves[:2],
+                                 leaves[2], create_graph=True)
+    results.append(torch.autograd.grad(((d1 + d2) * r).sum(), leaves))
+  row['second_order_rel_err'] = max(rel_err(x, y)[1]
+                                    for x, y in zip(*results))
+  pixels = B * H * W
+  # Per kernel: d and g read once, the gradient written once; 49 C
+  # multiply-adds a pixel.
+  row['bound_ms'], row['bound_by'] = bound(
+      2 * 49 * C * pixels, (49 + 2 * C) * pixels * 4, torch.float32)
+  for k in ('ms', 'call_ms', 'plain_ms'):
+    row[k] = row['df1'][k] + row['df2'][k]
+  row['bound_ms'] *= 2
+  row['max_abs_err'] = max(row['df1']['max_abs_err'],
+                           row['df2']['max_abs_err'])
+  row['rel_err'] = max(row['df1']['rel_err'], row['df2']['rel_err'])
+  return row
+
+
+def corr_bwd_phase(seed):
+  """K3's backward at the prelim step's five level shapes at batch 64
+  (one B1 and one B2 launch each a step) and at an odd shape.  Returns
+  (rows, per-step totals, failures)."""
+  config = configs.get_config(PRELIM_CONFIG)
+  size, batch = config.data.image_size, config.training.batch_size
+  shapes = ([((batch, size >> (i + 1), size >> (i + 1), c), 1)
+             for i, c in enumerate(config.model.feature_nums)]
+            + [((3, 13, 11, 24), 0)])
+  rows, failures = [], []
+  tol = TOL[torch.float32]
+  for i, (shape, per_step) in enumerate(shapes):
+    row = check_corr_bwd(shape, seed + i)
+    row.update(shape=list(shape), per_step=per_step, tol=tol)
+    rows.append(row)
+    log(f'  B1+B2 {shape} x{per_step} rel df1 {row["df1"]["rel_err"]:.3e} '
+        f'df2 {row["df2"]["rel_err"]:.3e} second order '
+        f'{row["second_order_rel_err"]:.3e} | kernels {row["ms"]:.4f} ms '
+        f'(df1 {row["df1"]["ms"]:.4f}, df2 {row["df2"]["ms"]:.4f}; calls '
+        f'{row["call_ms"]:.4f}) plain {row["plain_ms"]:.4f} bound '
+        f'{row["bound_ms"]:.6f} ({row["bound_by"]})')
+    for key in ('df1', 'df2'):
+      if not row[key]['rel_err'] <= tol:
+        failures.append(f'correlation {key} {shape}: rel '
+                        f'{row[key]["rel_err"]:.3e}')
+      if not row[key]['same_bits_twice']:
+        failures.append(f'correlation {key} {shape}: two runs differ')
+    if not row['second_order_rel_err'] <= tol:
+      failures.append(f'correlation second order {shape}: rel '
+                      f'{row["second_order_rel_err"]:.3e}')
+  total = {k: sum(r[k] * r['per_step'] for r in rows)
+           for k in ('ms', 'call_ms', 'plain_ms', 'bound_ms')}
+  total.update(bound_by='bytes', library_ms=None,
+               max_abs_err=max(r['max_abs_err'] for r in rows))
+  log(f'  per prelim step (f32, batch {batch}, device ms): B1+B2 kernels '
+      f'{total["ms"]:.4f} in {2 * len(config.model.feature_nums)} launches, '
+      f'plain {total["plain_ms"]:.4f}, bound {total["bound_ms"]:.6f}')
+  return rows, total, failures
+
+
+def prelim_batch(config, seed):
+  """A full-width batch, mask and the frames' noise, from a seed."""
+  g = torch.Generator(device='cuda').manual_seed(seed)
+  B, S = config.training.batch_size, config.data.image_size
+  frames = [torch.rand((B, S, S, 1), generator=g, device='cuda')
+            for _ in range(4)]
+  batch = tuple(frames) + (
+      torch.arange(1, B + 1, device='cuda', dtype=torch.float32),
+      0.5 * torch.randn((B, S, S, 3), generator=g, device='cuda'))
+  mask = (torch.rand((S, S, 1), generator=g, device='cuda') < 0.9).float()
+  noise = tuple(torch.randn((B, S, S, 1), generator=g, device='cuda')
+                for _ in range(2))
+  return batch, mask, noise
+
+
+def prelim_grad_phase(seed):
+  """One prelim loss's gradients at full width, kernel path (K3 and its
+  backward) against plain path (the plain cost volume under autograd):
+  the same randomised parameters, batch, mask and noise.  The loss within
+  the limit of itself, every leaf within the limit of the largest leaf's
+  gradient.  Returns (report, failures)."""
+  config = configs.get_config(PRELIM_CONFIG)
+  models = {}
+  for path, kernels in (('kernel', True), ('plain', False)):
+    models[path] = PINN(config, kernels=kernels).cuda()
+    randomize_(models[path], seed)
+  batch, mask, noise = prelim_batch(config, seed)
+  results = {}
+  for path, model in models.items():
+    params = dict(model.named_parameters())
+    loss, v_loss, p_loss = pinn_losses.get_prelim_loss_fn(config, model)(
+        params, mask, batch, noise=noise)
+    grads = torch.autograd.grad(loss, list(params.values()))
+    results[path] = ([float(v.detach()) for v in (loss, v_loss, p_loss)],
+                     dict(zip(params, grads)))
+  (k_losses, k_grads), (p_losses, p_grads) = (results['kernel'],
+                                              results['plain'])
+  loss_rel = max(abs(a - b) / abs(b) for a, b in zip(k_losses, p_losses))
+  top = max(float(v.abs().max()) for v in p_grads.values())
+  leaf_errs = {n: float((k_grads[n] - p_grads[n]).abs().max()) / top
+               for n in p_grads}
+  own_errs = {n: float((k_grads[n] - p_grads[n]).abs().max())
+              / max(float(p_grads[n].abs().max()), 1e-30) for n in p_grads}
+  worst = sorted(leaf_errs, key=leaf_errs.get, reverse=True)[:3]
+  worst_own = max(own_errs, key=own_errs.get)
+  finite = all(bool(torch.isfinite(v).all()) for v in k_grads.values())
+  tol = TOL[torch.float32]
+  out = dict(losses_kernel=k_losses, losses_plain=p_losses,
+             loss_rel=loss_rel, max_leaf_rel=leaf_errs[worst[0]],
+             worst_leaves={n: leaf_errs[n] for n in worst},
+             worst_own_leaf=(worst_own, own_errs[worst_own]),
+             leaves=len(leaf_errs), tol=tol)
+  log(f'  prelim gradients f32, batch {config.training.batch_size}: (loss, '
+      f'v, p) kernel {k_losses} plain {p_losses} (rel {loss_rel:.2e}); '
+      f'{len(leaf_errs)} leaves, worst rel to the largest leaf '
+      + ', '.join(f'{n} {leaf_errs[n]:.2e}' for n in worst)
+      + f' (limit {tol}); worst rel to its own leaf {worst_own} '
+      f'{own_errs[worst_own]:.2e}')
+  failures = []
+  if not (finite and loss_rel <= tol and leaf_errs[worst[0]] <= tol):
+    failures.append(f'prelim gradients: loss rel {loss_rel:.3e}, worst leaf '
+                    f'{worst[0]} {leaf_errs[worst[0]]:.3e}, finite {finite}')
+  del models, results, k_grads, p_grads
+  torch.cuda.empty_cache()
+  return out, failures
+
+
+def prelim_phase(prelim_steps, seed):
+  """``pinn_lib.train_prelim`` at pinn_pde's full width for steps
+  0..``prelim_steps`` with the cadence cut so that log, eval, the
+  preemption checkpoint and a snapshot fire, on a rollout made anew in
+  an empty data directory; the launch counts set to 0 before and read
+  after; then a resume from the preemption checkpoint.  Returns (report,
+  launches, failures)."""
+  config = configs.get_config(PRELIM_CONFIG)
+  t = config.training
+  t.n_iters = prelim_steps
+  t.log_freq = 10
+  t.eval_freq = prelim_steps // 2
+  t.snapshot_freq_for_preemption = prelim_steps // 2
+  t.snapshot_freq = prelim_steps
+  levels = len(config.model.feature_nums)
+  frames = max(int(config.data.time_trim) + 64, 400)
+  failures, history = [], []
+  data_dir = os.environ.get('BPKF_DATA_DIR')
+  with tempfile.TemporaryDirectory() as tmp:
+    os.environ['BPKF_DATA_DIR'] = os.path.join(tmp, 'data')
+    workdir = os.path.join(tmp, 'work')
+    try:
+      reset_counts()
+      torch.cuda.reset_peak_memory_stats()
+      torch.cuda.synchronize()
+      start = time.time()
+      state = pinn_lib.train_prelim(config, workdir, device='cuda',
+                                    history=history)
+      torch.cuda.synchronize()
+      total_s = time.time() - start
+      peak = torch.cuda.max_memory_allocated()
+      launches = {'correlation': k3.correlation.launches,
+                  'correlation_df1': k3.correlation_df1.launches,
+                  'correlation_df2': k3.correlation_df2.launches,
+                  'ns_step_fused': k4.ns_step_fused.launches}
+      corr_batches = dict(k3.correlation.batches)
+      fired = collections.Counter(e for h in history for e in h['events'])
+      n_steps = len(history)
+      expected = {'correlation': levels * (n_steps + fired['eval']),
+                  'correlation_df1': levels * n_steps,
+                  'correlation_df2': levels * n_steps,
+                  'ns_step_fused': frames - 1}
+      snapshots = sorted(os.listdir(os.path.join(workdir, 'checkpoints')))
+
+      # The parameters moved from the init; then one steady step profiled.
+      model, _ = init_pinn(config, device='cuda')
+      init = dict(model.named_parameters())
+      moved = sum(not torch.equal(init[n], p)
+                  for n, p in state.params.items())
+      n_leaves = len(init)
+      tx = pinn_losses.get_pinn_optimizer(config, lr_mul_pres=0.001)
+      step_fn = pinn_losses.get_prelim_step_fn(config, model, tx, train=True)
+      batch, mask, _ = prelim_batch(config, seed)
+      g = torch.Generator(device='cuda').manual_seed(seed)
+      step_fn(state, mask, batch, g)
+      profile_out, _ = profiled(
+          'prelim train step (batch 64, f32)',
+          lambda: step_fn(state, mask, batch, g))
+      del model, init, state
+
+      t.n_iters = prelim_steps + 4
+      resumed_history = []
+      resumed = pinn_lib.train_prelim(config, workdir, device='cuda',
+                                      history=resumed_history)
+      resumed_steps = [h['step'] for h in resumed_history]
+      resumed_final = resumed.step
+      del resumed
+
+      # The host's share: one batch assembled by the loader, as every
+      # step does before its update (the rollout is cached by now).
+      it = iter(get_dataset(config, device='cuda')[0])
+      next(it)
+      start = time.perf_counter()
+      for _ in range(5):
+        next(it)
+      batch_s = (time.perf_counter() - start) / 5
+    finally:
+      if data_dir is None:
+        os.environ.pop('BPKF_DATA_DIR', None)
+      else:
+        os.environ['BPKF_DATA_DIR'] = data_dir
+
+  steady = [h['seconds'] for h in history[2:] if not h['events']]
+  step_s = float(np.mean(steady))
+  losses_ = [h['loss'] for h in history]
+  bs = t.batch_size
+  report = dict(
+      steps=n_steps, events=dict(fired), total_s=total_s,
+      steady_step_s=step_s, samples_per_s=bs / step_s,
+      steady_steps_timed=len(steady), batch_assembly_s=batch_s,
+      first_step_s=history[0]['seconds'],
+      event_step_s={h['step']: h['seconds'] for h in history if h['events']},
+      losses=losses_, max_memory_allocated=peak, launches=launches,
+      expected_launches=expected, correlation_launches_by_batch=corr_batches,
+      snapshots=snapshots, params_moved=moved,
+      resumed_steps=resumed_steps, resumed_final_step=resumed_final,
+      profile=profile_out)
+  log(f'  {n_steps} steps in {total_s:.2f} s (the rollout and data set-up '
+      f'included; events {dict(fired)}); steady step {step_s:.4f} s (mean '
+      f'of {len(steady)} event-free steps after the first two, '
+      f'synchronised): {bs / step_s:.1f} samples/s; first step '
+      f'{history[0]["seconds"]:.2f} s; of a step, the batch\'s assembly on '
+      f'the host {batch_s:.4f} s')
+  log(f'  losses: first {losses_[0]:.5f}, last {losses_[-1]:.5f}, all finite '
+      f'{bool(np.isfinite(losses_).all())}; peak memory {peak / 2**30:.2f} '
+      'GiB (torch.cuda.max_memory_allocated)')
+  log(f'  launches {launches} (expected {expected}); K3 by batch '
+      f'{corr_batches}; snapshots {snapshots}; parameters moved '
+      f'{moved} of {n_leaves}; resumed at '
+      f'{resumed_steps[:1]} to step {resumed_final}')
+  if not np.isfinite(losses_).all():
+    failures.append('prelim: a loss is not finite')
+  for name, n in expected.items():
+    if launches[name] == 0 or launches[name] != n:
+      failures.append(f'prelim {name}: {launches[name]} launches, expected '
+                      f'{n}')
+  if snapshots != ['checkpoint_1']:
+    failures.append(f'prelim: snapshots {snapshots}')
+  if not moved:
+    failures.append('prelim: no parameter moved')
+  want_resumed = list(range(prelim_steps + 1, prelim_steps + 5))
+  if resumed_steps != want_resumed or resumed_final != prelim_steps + 5:
+    failures.append(f'prelim: resumed steps {resumed_steps}, final '
+                    f'{resumed_final}; expected {want_resumed}')
+  return report, launches, failures
+
+
 def reset_counts():
   """Every kernel's launch counts to 0."""
   for kernel in (k1.conv3x3, k2.groupnorm_act, k3.correlation,
-                 k4.ns_step_fused):
+                 k3.correlation_df1, k3.correlation_df2, k4.ns_step_fused):
     kernel.launches = 0
   for counts in (k1.conv3x3.launches_by_kernel, k1.conv3x3.launches_by_use,
                  k4.ns_step_fused.launches_by_kernel):
@@ -1122,6 +1426,9 @@ def main():
                       help='ukf filter cycles (default 10, as ukf_lib.run)')
   parser.add_argument('--train-steps', type=int, default=40,
                       help='train steps after step 0 (default 40; even)')
+  parser.add_argument('--prelim-steps', type=int, default=40,
+                      help='PINN prelim steps after step 0 (default 40; '
+                      'even)')
   parser.add_argument('--seed', type=int, default=0)
   parser.add_argument('--out', default=None,
                       help='directory for chip_smoke.json (per-shape details)')
@@ -1264,6 +1571,26 @@ def main():
   report['ukf_profile'], f6 = ukf_profile_phase(args.seed)
   failures += f6
 
+  config = configs.get_config(PRELIM_CONFIG)
+  prelim_batch_size = config.training.batch_size
+  log(f'[PINN prelim: K3 backward vs plain at the {PRELIM_CONFIG} levels, '
+      f'batch {prelim_batch_size}, f32]')
+  bwd_rows, bwd_total, f10 = corr_bwd_phase(args.seed)
+  failures += f10
+  report['kernels']['correlation_bwd'] = bwd_rows
+  report['per_prelim_step'] = {'correlation_bwd': bwd_total}
+  log(f'[PINN prelim: one step\'s loss and gradients, kernel path vs plain '
+      f'path, {config.data.image_size}x{config.data.image_size}, '
+      f'feature_nums {config.model.feature_nums}, batch {prelim_batch_size}, '
+      'f32]')
+  report['prelim_grads'], f11 = prelim_grad_phase(args.seed)
+  failures += f11
+  log(f'[PINN prelim: pinn_lib.train_prelim, steps 0..{args.prelim_steps}; '
+      'then a resume]')
+  report['prelim'], prelim_launches, f12 = prelim_phase(args.prelim_steps,
+                                                        args.seed)
+  failures += f12
+
   def entry(name, source, replaces, launches, total, yardstick=False):
     """One kernel's row of the table; a yardstick's numbers are its
     ``prev_*`` ones from the same rows, its launches those of the main
@@ -1294,6 +1621,10 @@ def main():
             'groupnorm_pallas.py:118', 0, norm_all, yardstick=True),
       entry('correlation', 'correlation.cu', 'correlation_pallas.py:42',
             ukf_launches['correlation'], corr),
+      entry('correlation_bwd', 'correlation_bwd.cu',
+            'correlation_pallas.py:42',
+            prelim_launches['correlation_df1']
+            + prelim_launches['correlation_df2'], bwd_total),
       entry('correlation_tile', 'correlation_tile.cu',
             'correlation_pallas.py:42', 0, corr, yardstick=True),
       entry('ns_step_fused', 'ns_step.cu', 'ns_step_pallas.py:63',
@@ -1311,9 +1642,11 @@ def main():
   log(f'total {report["seconds"]:.1f} s; kernel-table times (device ms): '
       'K1, K2 per U-Net forward (sum over the sites of one forward, bf16, '
       'batch 8), K1 as the data gradient per train step (bf16, batch '
-      f'{train_batch}), K3, K4 per ukf cycle (f32), each yardstick (the '
-      'first card design) at the same shapes; launches from the sampler '
-      '(K1, K2), the train run (K1 data gradient) and the ukf run (K3, K4)')
+      f'{train_batch}), K3, K4 per ukf cycle (f32), K3 backward (B1 + B2) '
+      f'per prelim step (f32, batch {prelim_batch_size}), each yardstick '
+      '(the first card design) at the same shapes; launches from the sampler '
+      '(K1, K2), the train run (K1 data gradient), the ukf run (K3, K4) and '
+      'the prelim run (K3 backward)')
   if failures:
     for failure in failures:
       print(f'FAILED: {failure}', file=sys.stderr)

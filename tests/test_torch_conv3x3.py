@@ -142,3 +142,21 @@ def test_no_fallback_off_cpu():
   w = torch.empty((3, 3, 32, 32), device='meta')
   with pytest.raises(ValueError, match='no kernel for device'):
     k1.conv3x3(x, w)
+
+
+def test_forward_mode_on_the_cpu_matches_jax_jvp():
+  """A forward-mode tangent in x, the kernel and the bias takes the plain
+  version on the CPU and carries it: ``torch.func.jvp`` equals
+  ``jax.jvp`` of the JAX direct conv (the function K1 computes).  On the
+  card the wrapper refuses such a tensor (tests/test_torch_kernels_cuda.py)
+  until the kernel has a forward-mode rule (ROADMAP.md B.3)."""
+  primals = _inputs(1, 5, 6, 8, 16, seed=7)
+  tangents = _inputs(1, 5, 6, 8, 16, seed=8)
+  want_y, want_t = jax.jvp(wg._direct_conv, tuple(map(jnp.asarray, primals)),
+                           tuple(map(jnp.asarray, tangents)))
+  got_y, got_t = torch.func.jvp(k1.conv3x3,
+                                tuple(map(torch.from_numpy, primals)),
+                                tuple(map(torch.from_numpy, tangents)))
+  for got, want in ((got_y, want_y), (got_t, want_t)):
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL,
+                               atol=TOL * np.abs(np.asarray(want)).max())

@@ -1,11 +1,13 @@
-"""The port's CIFAR-10 data path against the JAX package's
-``data/datasets.py``: the synthetic stand-in, the loader's epoch
-reshuffles and full batches, the native CIFAR-10 reader and
-``get_dataset``, bit for bit from the same seeds."""
+"""The port's data paths against the JAX package's ``data/datasets.py``:
+the synthetic stand-in, the loader's epoch reshuffles and full batches,
+the native CIFAR-10 reader and ``get_dataset``; the PDE dataset, the
+inpainting masks and the MNIST reader, bit for bit from the same seeds."""
 
+import gzip
 import itertools
 import os
 import pickle
+import struct
 
 import numpy as np
 import pytest
@@ -84,3 +86,95 @@ def test_cifar10_reader_equals_jax(tmp_path, monkeypatch):
   train, _ = datasets.get_dataset(torch_config)
   assert isinstance(train.dataset, datasets.ArrayImages)
   assert datasets.load_cifar10_batches(os.fspath(tmp_path / 'none')) is None
+
+
+def _rollout(seed=0, frames=30, h=12, w=20):
+  """A small (T, 6, H, W) float32 array standing in for a rollout."""
+  rng = np.random.default_rng(seed)
+  return rng.standard_normal((frames, 6, h, w)).astype(np.float32)
+
+
+@pytest.mark.parametrize('split,size', [('train', 8), ('test', 8),
+                                        ('train', 16)])
+def test_pde_items_equal_jax(split, size):
+  """Every item of both splits, including crops that pad (``size`` 16 >
+  the 12 rows) and the odd ``trim``."""
+  data = _rollout()
+  port = datasets.PDEDataset(data, size, split, trim=7, seed=3)
+  ref = jax_data.PDEDataset(data, size, split, trim=7, seed=3)
+  assert len(port) == len(ref) == (19 if split == 'train' else 2)
+  for i in range(len(ref)):
+    got, want = port[i], ref[i]
+    assert len(got) == len(want) == 6
+    for a, b in zip(got, want):
+      assert np.asarray(a).dtype == np.asarray(b).dtype == np.float32
+      assert np.array_equal(a, b)
+  assert got[0].shape == (size, size, 1) and got[5].shape == (size, size, 3)
+
+
+@pytest.mark.parametrize('invert', [False, True])
+def test_masks_equal_jax(invert):
+  """``inpaint_rnd``: the same uniform masks from the same seed."""
+  jax_config, torch_config = port_parity.tiny_pinn_configs()
+  for config in (jax_config, torch_config):
+    config.inverse.invert = invert
+  port = datasets.get_mask_dataset(torch_config)
+  ref = jax_data.get_mask_dataset(jax_config)
+  for _ in range(5):
+    got, want = port.next(), ref.next()
+    assert got.dtype == want.dtype == np.float32
+    assert got.shape == (16, 16, 1) and np.array_equal(got, want)
+
+
+def _write_idx(path, images, compress=False):
+  opener = gzip.open if compress else open
+  with opener(path, 'wb') as f:
+    f.write(struct.pack('>IIII', 2051, *images.shape))
+    f.write(images.tobytes())
+
+
+def test_mnist_reader_and_digit_masks_equal_jax(tmp_path, monkeypatch):
+  """A tiny idx file, plain and gzipped under ``MNIST/raw``: the same
+  images, and the ``inpaint`` masks made from them."""
+  rng = np.random.default_rng(2)
+  images = rng.integers(0, 256, (4, 28, 28), np.uint8)
+  _write_idx(tmp_path / 'train-images-idx3-ubyte', images)
+  raw = tmp_path / 'gz' / 'MNIST' / 'raw'
+  raw.mkdir(parents=True)
+  _write_idx(raw / 'train-images-idx3-ubyte.gz', images, compress=True)
+  for root in (tmp_path, tmp_path / 'gz'):
+    got = datasets.load_mnist_idx(str(root))
+    assert np.array_equal(got, jax_data.load_mnist_idx(str(root)))
+    assert np.array_equal(got, images)
+  assert datasets.load_mnist_idx(str(tmp_path / 'none')) is None
+  monkeypatch.setenv('BPKF_DATA_DIR', str(tmp_path))
+  jax_config, torch_config = port_parity.tiny_pinn_configs()
+  for config in (jax_config, torch_config):
+    config.inverse.operator = 'inpaint'
+  port = datasets.get_mask_dataset(torch_config)
+  ref = jax_data.get_mask_dataset(jax_config)
+  for _ in range(3):
+    assert np.array_equal(port.next(), ref.next())
+
+
+def test_pde_branch_of_get_dataset(tmp_path, monkeypatch):
+  """``pinn/pinn_pde`` at image size 16: the synthetic rollout of 400
+  frames at 200 x 32, stepped on the CPU and kept under the port's own
+  file name; 59 train and 39 test items; full batches of the six
+  fields."""
+  monkeypatch.setenv('BPKF_DATA_DIR', str(tmp_path))
+  _, config = port_parity.tiny_pinn_configs()
+  config.training.batch_size = 4
+  train, test = datasets.get_dataset(config, device='cpu')
+  assert os.listdir(tmp_path) == ['ns_rollout_port_400x200x32_42.npy']
+  assert (len(train.dataset), len(test.dataset)) == (59, 39)
+  assert train.dataset.data.shape == (400, 6, 200, 32)
+  for loader in (train, test):
+    f1, f2, x, y, t, target = _batches(loader, 1)[0]
+    for a in (f1, f2, x, y):
+      assert a.shape == (4, 16, 16, 1) and a.dtype == np.float32
+    assert target.shape == (4, 16, 16, 3) and t.shape == (4,)
+    assert np.isfinite(target).all()
+  # The second call reads the file.
+  again, _ = datasets.get_dataset(config, device='cpu')
+  assert np.array_equal(again.dataset.data, train.dataset.data)

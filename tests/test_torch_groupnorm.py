@@ -86,3 +86,30 @@ def test_backward_matches_jax_custom_vjp(act):
     w = np.asarray(w)
     assert g.shape == w.shape
     assert np.abs(g.numpy() - w).max() / np.abs(w).max() <= 1e-4
+
+
+def test_forward_mode_on_the_cpu_matches_jax_jvp():
+  """A forward-mode tangent in x, scale and bias takes the plain version on
+  the CPU and carries it: ``torch.func.jvp`` equals ``jax.jvp`` of the JAX
+  reference GroupNorm+SiLU (what the Pallas kernel computes; the kernel's
+  own custom_vjp has no forward mode).  On the card the wrapper refuses
+  such a tensor (tests/test_torch_kernels_cuda.py) until the kernel has a
+  forward-mode rule (ROADMAP.md B.3)."""
+  from b_pinn_kalman_filter_tpu.ops.groupnorm_pallas import (
+      _reference_groupnorm_act)
+  primals = _inputs((2, 4, 4, 64), seed=3)
+  tangents = _inputs((2, 4, 4, 64), seed=4)
+
+  def jax_fn(x, scale, bias):
+    return _reference_groupnorm_act(x, scale, bias, 32, 'silu', 1e-6)
+
+  def port_fn(x, scale, bias):
+    return k2.groupnorm_act(x, scale, bias, 32, 'silu', 1e-6)
+
+  want_y, want_t = jax.jvp(jax_fn, tuple(map(jnp.asarray, primals)),
+                           tuple(map(jnp.asarray, tangents)))
+  got_y, got_t = torch.func.jvp(port_fn, tuple(map(torch.from_numpy, primals)),
+                                tuple(map(torch.from_numpy, tangents)))
+  for got, want in ((got_y, want_y), (got_t, want_t)):
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL,
+                               atol=TOL * np.abs(np.asarray(want)).max())

@@ -1,4 +1,5 @@
-"""The CUDA kernels (K1-K4) against their plain versions, on the card.
+"""The CUDA kernels (K1-K4, and K3's backward) against their plain versions,
+on the card.
 
 Every test here carries the ``cuda`` marker and skips without a card.  The
 file imports nothing of JAX, so it also runs where JAX is not installed:
@@ -286,6 +287,136 @@ def test_correlation_stride_2_stays_plain(card):
   assert torch.equal(got, k3.correlation_plain(f1, f1, stride=2))
 
 
+@pytest.mark.parametrize('shape', [
+    (64, 32, 32, 16), (64, 16, 16, 32), (64, 8, 8, 64), (64, 4, 4, 96),
+    (64, 2, 2, 128),           # the five FlowNet levels at batch 64
+    (3, 13, 11, 24),           # odd H and W, one ragged channel chunk
+    (2, 11, 19, 40),           # two channel chunks
+    (2, 5, 9, 1),              # C = 1
+])
+def test_correlation_backward_matches_plain(card, shape):
+  """B1 and B2 against their plain versions, each twice for its bits, and
+  one launch each."""
+  d = torch.randn(shape[:3] + (49,), generator=card, device='cuda')
+  g = torch.randn(shape, generator=card, device='cuda')
+  for fn, plain in ((k3.correlation_df1, k3.correlation_df1_plain),
+                    (k3.correlation_df2, k3.correlation_df2_plain)):
+    before = fn.launches
+    with torch.inference_mode():
+      got = fn(d, g)
+      again = fn(d, g)
+      want = plain(d, g)
+    assert fn.launches == before + 2
+    assert got.shape == want.shape == shape
+    assert _rel(got, want) <= TOL[torch.float32]
+    assert torch.equal(got, again)       # a gather: no atomics
+
+
+@pytest.mark.parametrize('shape', [(8, 16, 16, 32), (3, 13, 11, 24)])
+def test_correlation_second_order_matches_plain(card, shape):
+  """The gradient of ``(df1 * r).sum() + (df2 * r).sum()`` in f1, f2 and
+  dout, through the kernels' Functions, against autograd of the plain
+  cost volume."""
+  f1, f2, r = (torch.randn(shape, generator=card, device='cuda')
+               for _ in range(3))
+  dout = torch.randn(shape[:3] + (49,), generator=card, device='cuda')
+  results = []
+  for fn in (k3.correlation, k3.correlation_plain):
+    leaves = [t.clone().requires_grad_() for t in (f1, f2, dout)]
+    d1, d2 = torch.autograd.grad(fn(leaves[0], leaves[1]), leaves[:2],
+                                 leaves[2], create_graph=True)
+    results.append(torch.autograd.grad(((d1 + d2) * r).sum(), leaves))
+  for got, want in zip(*results):
+    assert _rel(got, want) <= TOL[torch.float32]
+
+
+def test_correlation_vmap_of_grad_is_one_launch_each(card):
+  f1 = torch.randn((3, 2, 16, 16, 32), generator=card, device='cuda')
+  f2 = torch.randn((3, 2, 16, 16, 32), generator=card, device='cuda')
+  grad = torch.func.grad(lambda a, b: (k3.correlation(a, b) ** 2).sum(),
+                         argnums=(0, 1))
+  counts = [k3.correlation.launches, k3.correlation_df1.launches,
+            k3.correlation_df2.launches]
+  got = torch.func.vmap(grad)(f1, f2)
+  assert [k3.correlation.launches, k3.correlation_df1.launches,
+          k3.correlation_df2.launches] == [n + 1 for n in counts]
+  loop = [grad(a, b) for a, b in zip(f1, f2)]
+  for i in range(2):
+    assert _rel(got[i], torch.stack([g[i] for g in loop])) <= TOL[
+        torch.float32]
+
+
+def test_wrappers_refuse_forward_mode_tangents(card):
+  """K1, K2 and K3 have no forward-mode rule yet (ROADMAP.md B.3): a
+  tangent must not be dropped by a launch, so the wrappers raise."""
+  fwd = torch.autograd.forward_ad
+  x = torch.randn((1, 4, 4, 32), generator=card, device='cuda')
+  w = torch.randn((3, 3, 32, 32), generator=card, device='cuda')
+  s = torch.ones(32, device='cuda')
+  with fwd.dual_level():
+    dual = fwd.make_dual(x, torch.ones_like(x))
+    for call in (lambda: k1.conv3x3(dual, w),
+                 lambda: k1.conv3x3(x, fwd.make_dual(w, torch.ones_like(w))),
+                 lambda: k2.groupnorm_act(dual, s, s * 0),
+                 lambda: k3.correlation(dual, x),
+                 lambda: k3.correlation_df1(
+                     torch.zeros((1, 4, 4, 49), device='cuda'), dual)):
+      with pytest.raises(NotImplementedError, match='B.3'):
+        call()
+  with pytest.raises(NotImplementedError, match='B.3'):
+    torch.func.jvp(lambda a: k3.correlation(a, x), (x,), (x,))
+
+
+def _prelim_setup(kernels):
+  from b_pinn_kalman_filter_tpu_torch import configs
+  from b_pinn_kalman_filter_tpu_torch.pinn.pinn import PINN
+  config = configs.get_config('pinn/pinn_pde')
+  model = PINN(config, kernels=kernels)
+  with torch.no_grad():      # every leaf drawn: no zero-init head
+    g = torch.Generator().manual_seed(1)
+    for p in model.parameters():
+      v = torch.randn(p.shape, generator=g)
+      p.copy_(v / p[..., 0].numel() ** 0.5 if p.ndim >= 2 else 0.1 * v)
+  return config, model.cuda()
+
+
+def test_prelim_step_gradients_kernel_path_match_plain_path(card):
+  """One prelim loss's gradients at pinn_pde's full width (batch 4):
+  the cost volumes on the kernels against their plain versions, the same
+  parameters, batch, mask and noise; every leaf within 1e-4 of the
+  largest leaf's gradient."""
+  from b_pinn_kalman_filter_tpu_torch.pinn import losses as pinn_losses
+  config, kernel_model = _prelim_setup(True)
+  _, plain_model = _prelim_setup(False)
+  B, S = 4, config.data.image_size
+  batch = (torch.rand((B, S, S, 1), generator=card, device='cuda'),
+           torch.rand((B, S, S, 1), generator=card, device='cuda'),
+           torch.rand((B, S, S, 1), generator=card, device='cuda'),
+           torch.rand((B, S, S, 1), generator=card, device='cuda'),
+           torch.arange(1, B + 1, device='cuda', dtype=torch.float32),
+           torch.randn((B, S, S, 3), generator=card, device='cuda'))
+  mask = (torch.rand((S, S, 1), generator=card, device='cuda') < 0.9).float()
+  noise = tuple(torch.randn((B, S, S, 1), generator=card, device='cuda')
+                for _ in range(2))
+  before = [k3.correlation.launches, k3.correlation_df1.launches,
+            k3.correlation_df2.launches]
+  grads = []
+  for model in (kernel_model, plain_model):
+    params = dict(model.named_parameters())
+    loss, _, _ = pinn_losses.get_prelim_loss_fn(config, model)(
+        params, mask, batch, noise=noise)
+    grads.append(dict(zip(params, torch.autograd.grad(
+        loss, list(params.values())))))
+  # The kernel path: five cost volumes, and both backward kernels at each.
+  levels = len(config.model.feature_nums)
+  assert [k3.correlation.launches, k3.correlation_df1.launches,
+          k3.correlation_df2.launches] == [n + levels for n in before]
+  top = max(float(v.abs().max()) for v in grads[1].values())
+  for name, want in grads[1].items():
+    assert float((grads[0][name] - want).abs().max()) <= (
+        TOL[torch.float32] * top), name
+
+
 def _ns_fields(card, shape):
   d = torch.rand(shape, generator=card, device='cuda')
   u = 0.2 * torch.randn(shape, generator=card, device='cuda')
@@ -340,8 +471,8 @@ def test_flow_kernels_refuse_what_they_do_not_take(card):
   f = torch.zeros((1, 4, 4, 8), device='cuda')
   with pytest.raises(ValueError):
     k3.correlation(f, torch.zeros((1, 4, 4, 9), device='cuda'))
-  with pytest.raises(RuntimeError, match='training slice'):
-    k3.correlation(f.clone().requires_grad_(), f)
+  with pytest.raises(ValueError):
+    k3.correlation_df1(torch.zeros((1, 4, 4, 48), device='cuda'), f)
   line = torch.zeros((1, 1, 8), device='cuda')
   with pytest.raises(ValueError, match='>= 2'):
     k4.ns_step_fused(line, line, line, line, 0.0025, 1 / 200)

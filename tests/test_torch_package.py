@@ -27,6 +27,7 @@ if not torch.cuda.is_available():
   from b_pinn_kalman_filter_tpu_torch.device import get_device
   from b_pinn_kalman_filter_tpu_torch.train import run_lib
   from b_pinn_kalman_filter_tpu_torch.kalman import ukf_lib
+  from b_pinn_kalman_filter_tpu_torch.pinn import pinn_lib
   from b_pinn_kalman_filter_tpu_torch import configs
   for call in (get_device,
                lambda: run_lib.sample(configs.get_config(
@@ -34,7 +35,9 @@ if not torch.cuda.is_available():
                lambda: run_lib.train(configs.get_config(
                    'vp/cifar10_ddpmpp_continuous'), 'workdir-never-made'),
                lambda: ukf_lib.run(configs.get_config('pinn/pinn_pde'),
-                                   'workdir-never-made', n_steps=1)):
+                                   'workdir-never-made', n_steps=1),
+               lambda: pinn_lib.train_prelim(configs.get_config(
+                   'pinn/pinn_pde'), 'workdir-never-made')):
     try:
       call()
     except RuntimeError as e:
@@ -50,8 +53,8 @@ print('ok')
 def test_port_imports_no_jax_and_defaults_to_the_card():
   """In a fresh interpreter: import every port module and chip_smoke.py,
   then check sys.modules, and without a card that the default device,
-  run_lib.sample, run_lib.train, ukf_lib.run and chip_smoke.main()
-  refuse."""
+  run_lib.sample, run_lib.train, ukf_lib.run, pinn_lib.train_prelim and
+  chip_smoke.main() refuse."""
   env = dict(os.environ, PYTHONPATH=ROOT)
   out = subprocess.run([sys.executable, '-c', _IMPORT_ALL], cwd=ROOT,
                        env=env, capture_output=True, text=True, timeout=240)
