@@ -32,7 +32,8 @@
 // - Staging is cp.async, 16 bytes a copy where C is a multiple of 4 (4
 //   bytes a copy otherwise), zero-filled outside the image, in chunks of 16
 //   channels, double-buffered where a block has more than one chunk.
-// - Every thread leaves its 7 STRIP sums in shared memory; the block then
+// - A thread's sums run in double (see dot4); it leaves its 7 STRIP sums,
+//   rounded to float, in shared memory; the block then
 //   writes its tile's outputs as one coalesced run (16-byte stores where
 //   the tile spans whole rows), each block of a cluster a share of them,
 //   summing the cluster's partial sums through distributed shared memory
@@ -144,11 +145,21 @@ __device__ __forceinline__ void stage_planes(
   }
 }
 
-__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
+// The sums run in double: a product of two floats is exact in double, so
+// a sum over C channels keeps its precision whatever its cancellation.  A
+// sequential float sum loses up to ~C ulps of the terms' magnitudes, and
+// the PINN residual's third-order parameter gradient, which calls this
+// kernel from the backwards of csrc/correlation_bwd.cu's maps, magnifies
+// that about a thousandfold: with float sums the kernel path's residual
+// gradient was 1.0e-4 of the largest leaf's away from the plain path's,
+// with double sums 8.8e-6 (chip_smoke.py's phase-2 check at batch 64 on
+// an H100).  The double pipe's lower rate costs little here: the levels
+// are bounded by latency and the launch, not by the FMAs.
+__device__ __forceinline__ double dot4(float4 a, float4 b, double acc) {
+  acc = fma(double(a.x), double(b.x), acc);
+  acc = fma(double(a.y), double(b.y), acc);
+  acc = fma(double(a.z), double(b.z), acc);
+  return fma(double(a.w), double(b.w), acc);
 }
 
 // Grid (split, tiles, batch); a cluster is the `split` blocks of one tile,
@@ -194,11 +205,11 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) correlation_kernel(
       cp_async_commit();
     };
 
-    float acc[STRIP][K];
+    double acc[STRIP][K];
 #pragma unroll
     for (int k = 0; k < STRIP; ++k) {
 #pragma unroll
-      for (int dx = 0; dx < K; ++dx) acc[k][dx] = 0.f;
+      for (int dx = 0; dx < K; ++dx) acc[k][dx] = 0.0;
     }
 
     stage(0);
@@ -235,7 +246,7 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) correlation_kernel(
     for (int i = 0; i < STRIP; ++i) {
       float* to = part + (r * tw + s * STRIP + i) * SHIFTS + dyi * K;
 #pragma unroll
-      for (int dx = 0; dx < K; ++dx) to[dx] = acc[i][dx];
+      for (int dx = 0; dx < K; ++dx) to[dx] = float(acc[i][dx]);
     }
     cluster.sync();    // also the block barrier for a cluster of one
 

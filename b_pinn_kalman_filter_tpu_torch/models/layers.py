@@ -209,13 +209,15 @@ class Conv1x1(nn.Module):
 
 def get_timestep_embedding(timesteps: Tensor, embedding_dim: int,
                            max_positions: int = 10000) -> Tensor:
-  """Transformer sinusoidal timestep embedding, f32."""
+  """Transformer sinusoidal timestep embedding, f32 (f64 for f64
+  timesteps, so that a float64 gradient through t keeps its precision)."""
   assert timesteps.ndim == 1
+  dtype = torch.float64 if timesteps.dtype == torch.float64 else torch.float32
   half_dim = embedding_dim // 2
   emb = math.log(max_positions) / (half_dim - 1 if half_dim > 1 else 1)
-  emb = torch.exp(torch.arange(half_dim, dtype=torch.float32,
+  emb = torch.exp(torch.arange(half_dim, dtype=dtype,
                                device=timesteps.device) * -emb)
-  emb = timesteps.float()[:, None] * emb[None, :]
+  emb = timesteps.to(dtype)[:, None] * emb[None, :]
   emb = torch.cat([torch.sin(emb), torch.cos(emb)], dim=1)
   if embedding_dim % 2 == 1:
     emb = F.pad(emb, (0, 1))

@@ -126,14 +126,20 @@ def wgmma_plan(B: int, H: int, W: int, cin: int, cout: int) -> Dict:
 def conv_nhwc_plain(x: torch.Tensor, kernel: torch.Tensor,
                     bias: Optional[torch.Tensor] = None, stride: int = 1,
                     padding: int = 0) -> torch.Tensor:
-  """NHWC/HWIO conv by ``F.conv2d`` on an NCHW view, in f32 from inputs
-  cast to ``x.dtype``; f32 bias; output in ``x.dtype``."""
+  """NHWC/HWIO conv by ``F.conv2d`` on an NCHW view, in f32 (f64 for f64
+  inputs) from inputs cast to ``x.dtype``; bias likewise; output in
+  ``x.dtype``."""
   dtype = x.dtype
-  w = kernel.to(dtype).float().permute(3, 2, 0, 1)          # HWIO -> OIHW
-  out = F.conv2d(x.float().permute(0, 3, 1, 2), w, stride=stride,
+  compute = torch.promote_types(dtype, torch.float32)
+  w = kernel.to(dtype).to(compute).permute(3, 2, 0, 1)     # HWIO -> OIHW
+  if compute == torch.float64:
+    # The CPU's f64 convolution refuses a strided weight in its double
+    # backward ("grad_weight must be contiguous").
+    w = w.contiguous()
+  out = F.conv2d(x.to(compute).permute(0, 3, 1, 2), w, stride=stride,
                  padding=padding).permute(0, 2, 3, 1)
   if bias is not None:
-    out = out + bias.float()
+    out = out + bias.to(compute)
   return out.to(dtype).contiguous()
 
 

@@ -10,6 +10,8 @@ in [-3, 3]^2 scaled by ``stride``::
 
 with f2 zero outside the image and output size ceil(H/s) x ceil(W/s).
 
+The kernel sums the channels in double, so that the cost volume keeps
+its precision under the PINN residual's third-order gradient.
 :func:`correlation` launches the kernel for stride 1 on a CUDA tensor (or
 raises) and takes the plain version, :func:`correlation_plain`, for a CPU
 tensor; stride > 1 always takes the plain version, as the JAX dispatch
@@ -17,8 +19,9 @@ does.  Under ``torch.func.vmap`` the mapped dimensions are folded into the
 batch and the cost volume runs as ONE call (one kernel launch on the
 card), as the JAX package's ``jax.vmap`` over B-PINN draws folds them into
 one cost volume; the rule is the same on every device.
-``correlation.launches`` counts the launches and ``correlation.batches``
-the launches by batch size.  :func:`correlation_plan` sizes the kernel's
+``correlation.launches`` counts the launches, ``correlation.batches``
+the launches by batch size and ``correlation.sizes`` by image size (H,
+W), which tells the FlowNet's levels apart.  :func:`correlation_plan` sizes the kernel's
 tiles and cluster.
 
 Gradients.  With a cotangent d (B, H, W, 49) of the output, the input
@@ -38,7 +41,8 @@ gradients are ``K3(G, g)`` for d and ``B2(d, G)`` for g; against H of
 ``torch.autograd.Function`` whose backward calls the other two, and
 derivatives of any order stay on the kernels.  Each has the vmap rule
 that folds the mapped dimensions into the batch.  ``correlation_df1`` and
-``correlation_df2`` count their launches in ``.launches``.  Forward-mode
+``correlation_df2`` count their launches in ``.launches`` and by image
+size in ``.sizes``.  Forward-mode
 tangents take the plain version on the CPU and raise on the card
 (ROADMAP.md B.3).
 """
@@ -219,6 +223,7 @@ def _cost_volume(f1: torch.Tensor, f2: torch.Tensor) -> torch.Tensor:
   _build.check_launch(err, 'correlation')
   correlation.launches += 1
   correlation.batches[B] += 1
+  correlation.sizes[(H, W)] += 1
   return out
 
 
@@ -244,6 +249,7 @@ def _gradient(which: str, d: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
       d.data_ptr(), g.data_ptr(), out.data_ptr(), B, H, W, C, stream)
   _build.check_launch(err, f'correlation {which}')
   _PUBLIC[which].launches += 1
+  _PUBLIC[which].sizes[(H, W)] += 1
   return out
 
 
@@ -365,5 +371,8 @@ correlation.launches = 0
 correlation.batches = collections.Counter()
 correlation_df1.launches = 0
 correlation_df2.launches = 0
+correlation.sizes = collections.Counter()
+correlation_df1.sizes = collections.Counter()
+correlation_df2.sizes = collections.Counter()
 _PLAIN = {'df1': correlation_df1_plain, 'df2': correlation_df2_plain}
 _PUBLIC = {'df1': correlation_df1, 'df2': correlation_df2}

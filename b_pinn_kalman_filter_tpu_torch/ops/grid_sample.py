@@ -40,8 +40,11 @@ def grid_sample_2d(input: Tensor, grid: Tensor, padding_mode: str = 'zeros',
   batch = torch.arange(B, device=input.device)[:, None, None]
 
   def gather(ix, iy):
-    ix_c = ix.clamp(0, W - 1).long()
-    iy_c = iy.clamp(0, H - 1).long()
+    # Cast, then clamp: a NaN coordinate (whatever integer the cast makes
+    # of it) gathers a pixel in range and its NaN weight carries on, where
+    # clamping first would index out of range.
+    ix_c = ix.long().clamp(0, W - 1)
+    iy_c = iy.long().clamp(0, H - 1)
     vals = input[batch, iy_c, ix_c]                  # (B, Ho, Wo, C)
     if padding_mode == 'zeros':
       valid = (ix >= 0) & (ix <= W - 1) & (iy >= 0) & (iy <= H - 1)

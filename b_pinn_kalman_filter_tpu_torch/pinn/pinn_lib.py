@@ -1,10 +1,11 @@
-"""PINN set-up and training: ``init_pinn`` and phase 1 of ``train``, the
-preliminary FlowNet + PressureNet training on masked and noised frames.
+"""PINN set-up and training: ``init_pinn`` and the two phases of
+``train``: phase 1, the preliminary FlowNet + PressureNet training on
+masked and noised frames (also on its own, :func:`train_prelim`), and
+phase 2, the training with the Navier–Stokes residual.
 
 Counterpart of the JAX package's ``pinn/pinn_lib.py`` ``init_pinn``,
-``unbatch``, ``_run_phase`` and the first phase of ``train``.  Phase 2
-(the NS residual) and ``train_bpinn`` are ROADMAP.md A.2 and A.3; A.2
-adds ``train`` as :func:`train_prelim` followed by phase 2.
+``unbatch``, ``_run_phase`` and ``train``.  ``train_bpinn`` is ROADMAP.md
+A.3.
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ from __future__ import annotations
 import logging
 import os
 import time
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -103,9 +104,56 @@ def _run_phase(config, state, step_fns, mask_it, train_iter, eval_iter,
     if history is not None:
       if device.type == 'cuda':
         torch.cuda.synchronize(device)
-      history.append(dict(step=step, seconds=time.perf_counter() - start,
+      history.append(dict(phase=tag, step=step,
+                          seconds=time.perf_counter() - start,
                           loss=float(loss), events=fired))
   return state
+
+
+class _Run:
+  """What the phases of one training run share: the model, the mask and
+  data iterators, the noise generator and the checkpoint paths, all
+  carried from phase 1 on into phase 2."""
+
+  def __init__(self, config, workdir: str, device):
+    self.config = config
+    self.device = device
+    self.checkpoint_dir = os.path.join(workdir, 'checkpoints')
+    meta = os.path.join(workdir, 'checkpoints-meta')
+    self.checkpoint_meta = os.path.join(meta, 'checkpoint')
+    self.checkpoint_pinn = os.path.join(meta, 'checkpoint_pinn')
+    for d in (self.checkpoint_dir, meta):
+      os.makedirs(d, exist_ok=True)
+    self.model, _ = init_pinn(config, device=device)
+    self.mask_it = get_mask_dataset(config)
+    train_ds, eval_ds = get_dataset(config, device=device)
+    self.train_iter: Iterator = iter(train_ds)
+    self.eval_iter: Iterator = iter(eval_ds)
+    self.generator = torch.Generator(device=device).manual_seed(config.seed)
+
+  def phase(self, state, get_step_fn, tx, end_step: int, meta: str,
+            tag: str, history):
+    step_fns = (get_step_fn(self.config, self.model, tx, train=True),
+                get_step_fn(self.config, self.model, tx, train=False))
+    return _run_phase(self.config, state, step_fns, self.mask_it,
+                      self.train_iter, self.eval_iter, state.step, end_step,
+                      (self.checkpoint_dir, meta), tag, self.generator,
+                      self.device, history)
+
+  def prelim(self, history) -> state_lib.TrainState:
+    """Phase 1: ``get_pinn_optimizer`` with the PressureNet's learning
+    rate x 0.001 from the seeded init, the preemption checkpoint
+    ``checkpoints-meta/checkpoint`` restored when present, steps up to
+    ``training.n_iters``."""
+    tx = pinn_losses.get_pinn_optimizer(self.config, lr_mul_pres=0.001)
+    state = state_lib.create_train_state(
+        dict(self.model.named_parameters()), tx, self.config.model.ema_rate)
+    state = ckpt_lib.restore_checkpoint(self.checkpoint_meta, state,
+                                        quiet=True)
+    logger.info('Starting Preliminary Training loop at step %d.', state.step)
+    return self.phase(state, pinn_losses.get_prelim_step_fn, tx,
+                      self.config.training.n_iters, self.checkpoint_meta,
+                      'prelim', history)
 
 
 def train_prelim(config, workdir: str, *, device=None,
@@ -128,26 +176,39 @@ def train_prelim(config, workdir: str, *, device=None,
   ``{step, seconds, loss, events}``: host seconds from fetching its batch
   to the end of its events, and the events that fired.
   """
-  device = get_device(device)
-  checkpoint_dir = os.path.join(workdir, 'checkpoints')
-  checkpoint_meta = os.path.join(workdir, 'checkpoints-meta', 'checkpoint')
-  for d in (checkpoint_dir, os.path.dirname(checkpoint_meta)):
-    os.makedirs(d, exist_ok=True)
+  return _Run(config, workdir, get_device(device)).prelim(history)
 
-  model, _ = init_pinn(config, device=device)
-  mask_it = get_mask_dataset(config)
-  train_ds, eval_ds = get_dataset(config, device=device)
-  train_iter, eval_iter = iter(train_ds), iter(eval_ds)
 
-  tx = pinn_losses.get_pinn_optimizer(config, lr_mul_pres=0.001)
-  state = state_lib.create_train_state(dict(model.named_parameters()), tx,
+def train(config, workdir: str, *, device=None,
+          history: Optional[List[Dict[str, Any]]] = None
+          ) -> state_lib.TrainState:
+  """Both phases of PINN training on ``device`` (default ``cuda``);
+  returns phase 2's final train state.
+
+  Phase 1 is :func:`train_prelim`'s, steps 0 .. ``training.n_iters``.
+  Phase 2 follows the JAX ``train``: ``get_pinn_optimizer`` with the
+  PressureNet's learning rate x 0.005; a fresh train state (fresh EMA and
+  Adam counts) from phase 1's parameters, its step ``n_iters``; the
+  preemption checkpoint ``workdir/checkpoints-meta/checkpoint_pinn``
+  restored when present; then ``_run_phase``'s steps ``state.step`` ..
+  ``n_iters + n_pinn_iters`` of :func:`losses.get_pinn_step_fn`, tag
+  ``'pinn'``, snapshots into the same ``workdir/checkpoints``.  The masks,
+  the data iterators and the noise generator carry on from phase 1, so
+  step ``n_iters`` runs once in each phase, as in JAX.  A second call
+  re-runs phase 1's steps after its preemption checkpoint, then phase 2
+  from ``checkpoint_pinn``.  ``history`` as :func:`train_prelim`'s, each
+  entry with its ``phase`` (``'prelim'`` or ``'pinn'``).
+  """
+  run = _Run(config, workdir, get_device(device))
+  state = run.prelim(history)
+  t = config.training
+  tx = pinn_losses.get_pinn_optimizer(config, lr_mul_pres=0.005)
+  state = state_lib.create_train_state(state.params, tx,
                                        config.model.ema_rate)
-  state = ckpt_lib.restore_checkpoint(checkpoint_meta, state, quiet=True)
-  step_fns = (pinn_losses.get_prelim_step_fn(config, model, tx, train=True),
-              pinn_losses.get_prelim_step_fn(config, model, tx, train=False))
-  generator = torch.Generator(device=device).manual_seed(config.seed)
-  logger.info('Starting Preliminary Training loop at step %d.', state.step)
-  return _run_phase(config, state, step_fns, mask_it, train_iter, eval_iter,
-                    state.step, config.training.n_iters,
-                    (checkpoint_dir, checkpoint_meta), 'prelim', generator,
-                    device, history)
+  state.step = t.n_iters
+  state = ckpt_lib.restore_checkpoint(run.checkpoint_pinn, state, quiet=True)
+  logger.info('Starting Regularization Training loop at step %d.',
+              state.step)
+  return run.phase(state, pinn_losses.get_pinn_step_fn, tx,
+                   t.n_iters + t.n_pinn_iters, run.checkpoint_pinn, 'pinn',
+                   history)

@@ -48,7 +48,7 @@ def train(config, workdir: str, *, device=None,
   == n_iters``): ``checkpoints/checkpoint_{s // snapshot_freq}`` and, with
   ``snapshot_sampling``, ``batch_size // 4`` samples under the EMA saved
   to ``samples/iter_{s}/sample.np`` (uint8; the PNG grid waits for the
-  ``utils`` port, ROADMAP.md A.14).  Losses go to this module's logger
+  ``utils`` port, ROADMAP.md A.7).  Losses go to this module's logger
   (no TensorBoard writer).  One ``torch.Generator`` seeded with
   ``config.seed`` feeds t, z, dropout, the eval draws and the samples.
   ``tpu.steps_per_dispatch`` is kept for its key and changes nothing: the

@@ -2,8 +2,8 @@
 """Drive the PyTorch port on one NVIDIA card and check it.
 
     python3 chip_smoke.py [--steps N] [--requests R] [--cycles C]
-                          [--train-steps T] [--prelim-steps P] [--seed S]
-                          [--out DIR]
+                          [--train-steps T] [--prelim-steps P]
+                          [--pinn-steps Q] [--seed S] [--out DIR]
 
 Run from the root of a checkout; it needs one CUDA card, ``nvcc`` and
 ``nvidia-smi``, and imports nothing of JAX or the JAX package.  Phases:
@@ -95,12 +95,35 @@ Run from the root of a checkout; it needs one CUDA card, ``nvcc`` and
    step seconds and samples/s, the batch's assembly on the host, peak
    memory, one steady step under ``torch.profiler``, then a resume from
    the preemption checkpoint;
-10. print the kernel table as one JSON line (every kernel of the paths and
-   every yardstick beside it), then the ``{"ok": true, ...}`` line.  With
-   ``--out DIR`` the per-shape details go to ``DIR/chip_smoke.json``.
+10. PINN phase 2 (the same width): a third-order product through K3, B1
+   and B2 (the gradient of a seeded linear functional of phase 9's
+   second-order product) against autograd of the plain cost volume at the
+   five level shapes at batch 64 and an odd shape, within 1e-5; one
+   phase-2 loss, kernel path against plain path (the same randomised
+   parameters, batch, mask and noise): the residual and the data loss,
+   the gradient of the NS residual alone (leaves it does not reach as
+   zeros) and the total gradient, every leaf within the limit of the
+   largest leaf's gradient, with the kernel path's K3, B1 and B2 launches
+   by stage of the residual (forward, first and second derivatives,
+   parameter gradient), by level, for a train step and an eval step; then
+   ``pinn_lib.train``: phase 1 for steps 0..2, phase 2 for steps
+   2..2 + ``--pinn-steps`` (default 20) with the cadence cut so that log,
+   eval, the ``checkpoint_pinn`` preemption checkpoint and a snapshot fire
+   in phase 2, the launch counts set to 0 before and read after (against
+   the step's and the eval's counts); checks: finite losses, every leaf
+   moved in phase 2, phase 2's Adam counts fresh, the step numbers; the
+   steady phase-2 step's seconds and samples/s, peak memory, one steady
+   step under ``torch.profiler`` (K3's and its backward's device ms), then
+   a resume (phase 1 after its last preemption checkpoint, phase 2 from
+   ``checkpoint_pinn``);
+11. print the kernel table as one JSON line (every kernel of the paths and
+   every yardstick beside it; K3's and K3 backward's rows also carry their
+   phase-2 launches and device ms), then the ``{"ok": true, ...}`` line.
+   With ``--out DIR`` the per-shape details go to ``DIR/chip_smoke.json``.
 
-Error limits (relative to max |reference|), in phases 3 to 5, 7 and 9: f32
-1e-4; bf16 3e-2, the bound tests/test_winograd.py holds bf16 Winograd to.
+Error limits (relative to max |reference|), in phases 3 to 5, 7, 9 and 10:
+f32 1e-4 (K3 at third order 1e-5); bf16 3e-2, the bound
+tests/test_winograd.py holds bf16 Winograd to.
 
 Any failed phase exits non-zero without the last line.  Without a CUDA card
 it exits 2 and prints no result.
@@ -138,7 +161,8 @@ from b_pinn_kalman_filter_tpu_torch.ops import groupnorm as k2
 from b_pinn_kalman_filter_tpu_torch.ops import ns_step as k4
 from b_pinn_kalman_filter_tpu_torch.pinn import bayes, pinn_lib
 from b_pinn_kalman_filter_tpu_torch.pinn import losses as pinn_losses
-from b_pinn_kalman_filter_tpu_torch.pinn.pinn import PINN
+from b_pinn_kalman_filter_tpu_torch.pinn.pinn import (
+    PINN, equation_mse_from_outputs)
 from b_pinn_kalman_filter_tpu_torch.pinn.pinn_lib import init_pinn
 from b_pinn_kalman_filter_tpu_torch.train import run_lib
 from b_pinn_kalman_filter_tpu_torch.train import state as state_lib
@@ -1207,6 +1231,318 @@ def prelim_phase(prelim_steps, seed):
   return report, launches, failures
 
 
+PINN_CONFIG = 'pinn/pinn_pde'
+# K3 at third order against autograd of the plain cost volume: the
+# limit relative to max |plain| (the second-order products hold to 4.5e-7).
+THIRD_ORDER_TOL = 1e-5
+FLOW_KERNELS = (('correlation', k3.correlation),
+                ('correlation_df1', k3.correlation_df1),
+                ('correlation_df2', k3.correlation_df2))
+
+
+def flow_counts():
+  """K3's, B1's and B2's launch counts, by name."""
+  return {name: fn.launches for name, fn in FLOW_KERNELS}
+
+
+def check_corr_third(shape, seed):
+  """K3 at third order at (B, H, W, C): the gradient in f1, f2 and dout of
+  a seeded linear functional of ``check_corr_bwd``'s second-order product,
+  through K3, B1 and B2, against autograd of the plain cost volume.
+  Returns the worst of the three gradients' errors relative to max
+  |plain|."""
+  B, H, W, C = shape
+  g = torch.Generator(device='cuda').manual_seed(seed)
+  f1, f2, r, q1, q2 = (torch.randn(shape, generator=g, device='cuda')
+                       for _ in range(5))
+  dout, q3 = (torch.randn((B, H, W, 49), generator=g, device='cuda')
+              for _ in range(2))
+  results = []
+  for fn in (k3.correlation, k3.correlation_plain):
+    leaves = [t.clone().requires_grad_() for t in (f1, f2, dout)]
+    d1, d2 = torch.autograd.grad(fn(leaves[0], leaves[1]), leaves[:2],
+                                 leaves[2], create_graph=True)
+    second = torch.autograd.grad(((d1 + d2) * r).sum(), leaves,
+                                 create_graph=True)
+    results.append(torch.autograd.grad(
+        sum((a * b).sum() for a, b in zip(second, (q1, q2, q3))), leaves))
+  return max(rel_err(x, y)[1] for x, y in zip(*results))
+
+
+def corr_third_phase(seed):
+  """K3 at third order at the five level shapes at batch 64 and an odd
+  shape.  Returns (rows, failures)."""
+  config = configs.get_config(PINN_CONFIG)
+  size, batch = config.data.image_size, config.training.batch_size
+  shapes = ([(batch, size >> (i + 1), size >> (i + 1), c)
+             for i, c in enumerate(config.model.feature_nums)]
+            + [(3, 13, 11, 24)])
+  rows, failures = [], []
+  for i, shape in enumerate(shapes):
+    rel = check_corr_third(shape, seed + i)
+    rows.append(dict(shape=list(shape), third_order_rel_err=rel,
+                     tol=THIRD_ORDER_TOL))
+    log(f'  K3, B1, B2 third order {shape}: rel {rel:.3e} (limit '
+        f'{THIRD_ORDER_TOL})')
+    if not rel <= THIRD_ORDER_TOL:
+      failures.append(f'correlation third order {shape}: rel {rel:.3e}')
+  return rows, failures
+
+
+def pinn_batch(config, seed):
+  """``prelim_batch`` with the coordinates a unit grid per image jittered
+  by up to 0.01 (no pixel where the spatial embedding's sqrt has its 1e6
+  second derivative)."""
+  batch, mask, noise = prelim_batch(config, seed)
+  g = torch.Generator(device='cuda').manual_seed(seed + 1)
+  B, S = config.training.batch_size, config.data.image_size
+  grid = torch.linspace(0, 1, S, device='cuda')
+  x = grid[None, None, :, None] + 0.01 * torch.rand(
+      (B, S, S, 1), generator=g, device='cuda')
+  y = grid[None, :, None, None] + 0.01 * torch.rand(
+      (B, S, S, 1), generator=g, device='cuda')
+  return batch[:2] + (x, y) + batch[4:], mask, noise
+
+
+def leaf_errors(got, want):
+  """Each leaf's max error relative to the largest leaf of ``want``; the
+  three worst."""
+  top = max(float(v.abs().max()) for v in want.values())
+  errs = {n: float((got[n] - w).abs().max()) / top for n, w in want.items()}
+  worst = sorted(errs, key=errs.get, reverse=True)[:3]
+  return errs[worst[0]], {n: errs[n] for n in worst}
+
+
+def pinn_grad_phase(seed):
+  """One phase-2 loss at full width, kernel path (K3, B1, B2 to third
+  order) against plain path (the plain cost volume under autograd): the
+  same randomised parameters, batch, mask and noise.  Compares the
+  residual and the data loss, the gradient of the residual alone (at the
+  loss weight 1e-5 a wrong one would vanish in the total; leaves it does
+  not reach are zeros) and the total gradient, every leaf within the
+  limit of the largest leaf's gradient; counts the kernel path's launches
+  by stage of the residual, by level, for one train step and for one eval
+  step.  Returns (report, failures)."""
+  config = configs.get_config(PINN_CONFIG)
+  batch, mask, noise = pinn_batch(config, seed)
+  f1m, f2m = pinn_losses.masked_frames(config, batch, mask, None, noise)
+  _, _, x, y, t, _ = batch
+  out, results = {}, {}
+  for path, kernels in (('kernel', True), ('plain', False)):
+    model = PINN(config, kernels=kernels).cuda()
+    randomize_(model, seed)
+    params = dict(model.named_parameters())
+    stages = []
+
+    def trace(stage):
+      stages.append((stage, flow_counts()))
+
+    reset_counts()
+    residual = equation_mse_from_outputs(
+        model, params, f1m, f2m, x, y, t, pinn_losses.RE, trace=trace)
+    g_res = torch.autograd.grad(residual, list(params.values()),
+                                allow_unused=True, materialize_grads=True)
+    trace('parameter gradient')
+    del residual
+    reset_counts()
+    loss_fn = pinn_losses.get_pinn_loss_fn(config, model)
+    loss, pinn_loss, data_loss = loss_fn(params, mask, batch, noise=noise)
+    g_all = torch.autograd.grad(loss, list(params.values()))
+    step_counts = flow_counts()
+    step_sizes = {name: {f'{h}x{w}': n for (h, w), n in fn.sizes.items()}
+                  for name, fn in FLOW_KERNELS}
+    reset_counts()
+    loss_fn(params, mask, batch, noise=noise, create_graph=False)
+    eval_counts = flow_counts()
+    torch.cuda.synchronize()
+    results[path] = dict(
+        values=[float(v.detach()) for v in (loss, pinn_loss, data_loss)],
+        residual=dict(zip(params, g_res)), total=dict(zip(params, g_all)))
+    if kernels:
+      out.update(stages=stages, step_launches=step_counts,
+                 step_launches_by_size=step_sizes, eval_launches=eval_counts)
+    del model, params, g_res, g_all, loss, pinn_loss, data_loss
+    torch.cuda.empty_cache()
+  k, p = results['kernel'], results['plain']
+  tol = TOL[torch.float32]
+  value_rel = [abs(a - b) / abs(b) for a, b in zip(k['values'], p['values'])]
+  failures = []
+  out.update(values_kernel=k['values'], values_plain=p['values'],
+             value_rel=value_rel, tol=tol)
+  for which in ('residual', 'total'):
+    worst, top3 = leaf_errors(k[which], p[which])
+    finite = all(bool(torch.isfinite(v).all()) for v in k[which].values())
+    out[f'{which}_grad'] = dict(max_leaf_rel=worst, worst_leaves=top3,
+                                finite=finite, leaves=len(k[which]))
+    log(f'  {which} gradient, kernel vs plain: worst leaf rel to the '
+        'largest leaf ' + ', '.join(f'{n} {e:.2e}' for n, e in top3.items())
+        + f' (limit {tol}), finite {finite}')
+    if not (finite and worst <= tol):
+      failures.append(f'phase-2 {which} gradient: worst leaf {worst:.3e}, '
+                      f'finite {finite}')
+  log(f'  (loss, pinn_loss, data_loss) kernel {k["values"]} plain '
+      f'{p["values"]} (rel {[f"{v:.2e}" for v in value_rel]})')
+  if not max(value_rel) <= tol:
+    failures.append(f'phase-2 losses: rel {max(value_rel):.3e}')
+  log('  launches of the residual\'s gradient by stage (cumulative): '
+      + '; '.join(f'{stage} {counts}' for stage, counts in out['stages']))
+  log(f'  launches of one train step {out["step_launches"]}, by image size '
+      f'{out["step_launches_by_size"]}; of one eval step '
+      f'{out["eval_launches"]}')
+  return out, failures
+
+
+def pinn_phase(pinn_steps, per_step, per_eval, seed):
+  """``pinn_lib.train`` at pinn_pde's full width: phase 1 for steps 0..2,
+  phase 2 for steps 2..2 + ``pinn_steps`` with the cadence cut so that
+  log, eval, the ``checkpoint_pinn`` preemption checkpoint and a snapshot
+  fire in phase 2, on a rollout made anew in an empty data directory;
+  the launch counts set to 0 before and read after, against the train
+  and eval steps' counts of ``pinn_grad_phase`` (``per_step``,
+  ``per_eval``); then a resume.  Returns (report, launches, failures)."""
+  config = configs.get_config(PINN_CONFIG)
+  t = config.training
+  t.n_iters = 2
+  t.n_pinn_iters = pinn_steps
+  t.log_freq = pinn_steps // 2
+  t.eval_freq = pinn_steps // 2
+  t.snapshot_freq_for_preemption = pinn_steps // 2
+  t.snapshot_freq = pinn_steps
+  levels = len(config.model.feature_nums)
+  frames = max(int(config.data.time_trim) + 64, 400)
+  failures, history = [], []
+  data_dir = os.environ.get('BPKF_DATA_DIR')
+  with tempfile.TemporaryDirectory() as tmp:
+    os.environ['BPKF_DATA_DIR'] = os.path.join(tmp, 'data')
+    workdir = os.path.join(tmp, 'work')
+    try:
+      reset_counts()
+      torch.cuda.reset_peak_memory_stats()
+      torch.cuda.synchronize()
+      start = time.time()
+      state = pinn_lib.train(config, workdir, device='cuda', history=history)
+      torch.cuda.synchronize()
+      total_s = time.time() - start
+      peak = torch.cuda.max_memory_allocated()
+      launches = dict(flow_counts(),
+                      ns_step_fused=k4.ns_step_fused.launches)
+      phases = {tag: [h for h in history if h['phase'] == tag]
+                for tag in ('prelim', 'pinn')}
+      evals = {tag: sum('eval' in h['events'] for h in hs)
+               for tag, hs in phases.items()}
+      expected = {name: levels * (len(phases['prelim'])
+                                  + (name == 'correlation') * evals['prelim'])
+                  + per_step[name] * len(phases['pinn'])
+                  + per_eval[name] * evals['pinn']
+                  for name in per_step}
+      expected['ns_step_fused'] = frames - 1
+      fired = collections.Counter(e for h in phases['pinn']
+                                  for e in h['events'])
+      snapshots = sorted(os.listdir(os.path.join(workdir, 'checkpoints')))
+      phase1_end = torch.load(os.path.join(workdir, 'checkpoints',
+                                           'checkpoint_0'),
+                              map_location='cuda', weights_only=True)
+      moved = sum(not torch.equal(phase1_end['params'][n], v)
+                  for n, v in state.params.items())
+      n_leaves = len(state.params)
+      counts = {label: s.count for label, s in state.opt_state.items()}
+      final_step = state.step
+      pinn_meta = os.path.exists(os.path.join(workdir, 'checkpoints-meta',
+                                              'checkpoint_pinn'))
+
+      # One steady phase-2 step profiled, on the trained state.
+      model, _ = init_pinn(config, device='cuda')
+      tx = pinn_losses.get_pinn_optimizer(config, lr_mul_pres=0.005)
+      step_fn = pinn_losses.get_pinn_step_fn(config, model, tx, train=True)
+      batch, mask, _ = pinn_batch(config, seed)
+      g = torch.Generator(device='cuda').manual_seed(seed)
+      step_fn(state, mask, batch, g)
+      profile_out, _ = profiled(
+          'phase-2 train step (batch 64, f32)',
+          lambda: step_fn(state, mask, batch, g))
+      del model, state, phase1_end
+
+      t.n_pinn_iters = pinn_steps + 2
+      resumed_history = []
+      resumed = pinn_lib.train(config, workdir, device='cuda',
+                               history=resumed_history)
+      resumed_steps = [(h['phase'], h['step']) for h in resumed_history]
+      resumed_final = resumed.step
+      del resumed
+    finally:
+      if data_dir is None:
+        os.environ.pop('BPKF_DATA_DIR', None)
+      else:
+        os.environ['BPKF_DATA_DIR'] = data_dir
+
+  steady = [h['seconds'] for h in phases['pinn'][2:] if not h['events']]
+  step_s = float(np.mean(steady))
+  losses_ = [h['loss'] for h in history]
+  bs = t.batch_size
+  families = profile_out['families']
+  report = dict(
+      steps={tag: [h['step'] for h in hs] for tag, hs in phases.items()},
+      events=dict(fired), total_s=total_s, steady_step_s=step_s,
+      samples_per_s=bs / step_s, steady_steps_timed=len(steady),
+      first_step_s=phases['pinn'][0]['seconds'],
+      event_step_s={h['step']: h['seconds'] for h in phases['pinn']
+                    if h['events']},
+      losses=losses_, max_memory_allocated=peak, launches=launches,
+      expected_launches=expected, snapshots=snapshots, params_moved=moved,
+      leaves=n_leaves, adam_counts=counts,
+      final_step=final_step, resumed_steps=resumed_steps,
+      resumed_final_step=resumed_final, profile=profile_out,
+      k3_device_ms=families.get('K3 correlation', (0, 0.0))[1],
+      k3_bwd_device_ms=families.get('K3 correlation backward', (0, 0.0))[1])
+  n_pinn = len(phases['pinn'])
+  log(f'  {len(history)} steps in {total_s:.2f} s (the rollout and data '
+      f'set-up included; phase-2 events {dict(fired)}); phase-2 steady step '
+      f'{step_s:.4f} s (mean of {len(steady)} event-free steps after the '
+      f'first two, synchronised): {bs / step_s:.2f} samples/s; its first '
+      f'step {phases["pinn"][0]["seconds"]:.2f} s')
+  log(f'  losses: phase 1 first {losses_[0]:.5f}, phase 2 first '
+      f'{phases["pinn"][0]["loss"]:.5f}, last {losses_[-1]:.5f}, all finite '
+      f'{bool(np.isfinite(losses_).all())}; peak memory '
+      f'{peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated)')
+  log(f'  launches {launches} (expected {expected}); snapshots {snapshots}; '
+      f'parameters moved in phase 2 {moved} of {report["leaves"]}; Adam '
+      f'counts {counts} after {n_pinn} phase-2 steps; final step '
+      f'{final_step}; resumed {resumed_steps} to step {resumed_final}')
+  log(f'  profiled step: K3 {report["k3_device_ms"]:.3f} ms, B1 + B2 '
+      f'{report["k3_bwd_device_ms"]:.3f} ms of device time')
+  if not np.isfinite(losses_).all():
+    failures.append('phase 2: a loss is not finite')
+  for name, n in expected.items():
+    if launches[name] == 0 or launches[name] != n:
+      failures.append(f'phase 2 {name}: {launches[name]} launches, expected '
+                      f'{n}')
+  want_steps = {'prelim': [0, 1, 2], 'pinn': list(range(2, 3 + pinn_steps))}
+  if report['steps'] != want_steps or final_step != 3 + pinn_steps:
+    failures.append(f'phase 2: steps {report["steps"]}, final {final_step}')
+  if set(fired) != {'log', 'eval', 'preempt_ckpt', 'snapshot'} or not (
+      pinn_meta):
+    failures.append(f'phase 2: events {dict(fired)}, checkpoint_pinn '
+                    f'{pinn_meta}')
+  if snapshots != ['checkpoint_0', 'checkpoint_1']:
+    failures.append(f'phase 2: snapshots {snapshots}')
+  if moved != report['leaves']:
+    failures.append(f'phase 2: {moved} of {report["leaves"]} leaves moved')
+  if counts != {'flow': n_pinn, 'pres': n_pinn}:
+    failures.append(f'phase 2: Adam counts {counts}, expected {n_pinn}')
+  # The resume re-runs phase 1 after its last preemption checkpoint, then
+  # phase 2 after its last (checkpoint_pinn).
+  last = {tag: max([-1] + [h['step'] for h in hs
+                           if 'preempt_ckpt' in h['events']])
+          for tag, hs in phases.items()}
+  want_resumed = ([('prelim', s) for s in range(last['prelim'] + 1, 3)]
+                  + [('pinn', s) for s in range(last['pinn'] + 1,
+                                                pinn_steps + 5)])
+  if resumed_steps != want_resumed or resumed_final != pinn_steps + 5:
+    failures.append(f'phase 2: resumed {resumed_steps}, final '
+                    f'{resumed_final}; expected {want_resumed}')
+  return report, launches, failures
+
+
 def reset_counts():
   """Every kernel's launch counts to 0."""
   for kernel in (k1.conv3x3, k2.groupnorm_act, k3.correlation,
@@ -1217,6 +1553,8 @@ def reset_counts():
     for key in counts:
       counts[key] = 0
   k3.correlation.batches.clear()
+  for kernel in (k3.correlation, k3.correlation_df1, k3.correlation_df2):
+    kernel.sizes.clear()
 
 
 def profiled(name, fn):
@@ -1429,6 +1767,9 @@ def main():
   parser.add_argument('--prelim-steps', type=int, default=40,
                       help='PINN prelim steps after step 0 (default 40; '
                       'even)')
+  parser.add_argument('--pinn-steps', type=int, default=20,
+                      help='PINN phase-2 steps after its first (default '
+                      '20; even)')
   parser.add_argument('--seed', type=int, default=0)
   parser.add_argument('--out', default=None,
                       help='directory for chip_smoke.json (per-shape details)')
@@ -1591,6 +1932,23 @@ def main():
                                                         args.seed)
   failures += f12
 
+  log(f'[PINN phase 2: K3, B1 and B2 at third order vs plain at the '
+      f'{PINN_CONFIG} levels, batch {prelim_batch_size}, f32]')
+  report['kernels']['correlation_third_order'], f13 = corr_third_phase(
+      args.seed)
+  failures += f13
+  log(f'[PINN phase 2: one step\'s residual, losses and gradients, kernel '
+      f'path vs plain path, batch {prelim_batch_size}, f32]')
+  report['pinn_grads'], f14 = pinn_grad_phase(args.seed)
+  failures += f14
+  log(f'[PINN phase 2: pinn_lib.train, phase 1 steps 0..2, phase 2 steps '
+      f'2..{2 + args.pinn_steps}; then a resume]')
+  report['pinn'], pinn_launches, f15 = pinn_phase(
+      args.pinn_steps, report['pinn_grads']['step_launches'],
+      report['pinn_grads']['eval_launches'], args.seed)
+  failures += f15
+  step_launches = report['pinn_grads']['step_launches']
+
   def entry(name, source, replaces, launches, total, yardstick=False):
     """One kernel's row of the table; a yardstick's numbers are its
     ``prev_*`` ones from the same rows, its launches those of the main
@@ -1619,12 +1977,20 @@ def main():
             launches['groupnorm_act'], norm_all),
       entry('groupnorm_act_pergroup', 'groupnorm_pergroup.cu',
             'groupnorm_pallas.py:118', 0, norm_all, yardstick=True),
-      entry('correlation', 'correlation.cu', 'correlation_pallas.py:42',
-            ukf_launches['correlation'], corr),
-      entry('correlation_bwd', 'correlation_bwd.cu',
-            'correlation_pallas.py:42',
-            prelim_launches['correlation_df1']
-            + prelim_launches['correlation_df2'], bwd_total),
+      dict(entry('correlation', 'correlation.cu', 'correlation_pallas.py:42',
+                 ukf_launches['correlation'], corr),
+           phase2_launches=pinn_launches['correlation'],
+           phase2_step_launches=step_launches['correlation'],
+           phase2_step_device_ms=report['pinn']['k3_device_ms']),
+      dict(entry('correlation_bwd', 'correlation_bwd.cu',
+                 'correlation_pallas.py:42',
+                 prelim_launches['correlation_df1']
+                 + prelim_launches['correlation_df2'], bwd_total),
+           phase2_launches=pinn_launches['correlation_df1']
+           + pinn_launches['correlation_df2'],
+           phase2_step_launches=step_launches['correlation_df1']
+           + step_launches['correlation_df2'],
+           phase2_step_device_ms=report['pinn']['k3_bwd_device_ms']),
       entry('correlation_tile', 'correlation_tile.cu',
             'correlation_pallas.py:42', 0, corr, yardstick=True),
       entry('ns_step_fused', 'ns_step.cu', 'ns_step_pallas.py:63',
@@ -1646,7 +2012,9 @@ def main():
       f'per prelim step (f32, batch {prelim_batch_size}), each yardstick '
       '(the first card design) at the same shapes; launches from the sampler '
       '(K1, K2), the train run (K1 data gradient), the ukf run (K3, K4) and '
-      'the prelim run (K3 backward)')
+      'the prelim run (K3 backward); phase2_* keys: K3 and K3 backward '
+      'launches over the phase-2 train run and a step, and their device ms '
+      'in the profiled phase-2 step')
   if failures:
     for failure in failures:
       print(f'FAILED: {failure}', file=sys.stderr)

@@ -220,3 +220,23 @@ def test_vmap_rule_folds_the_stack_into_one_call(case, monkeypatch):
   want = jax_corr(jnp.asarray(f1.reshape(6, 6, 5, 4)),
                   jnp.asarray(f2.reshape(6, 6, 5, 4)), 1)
   _close(got.reshape(6, 6, 5, 49), want)
+
+
+def test_aligned_copies_expanded_cotangents_and_reverse_mode_is_no_tangent():
+  """Under nested ``create_graph`` the cotangents that reach K3, B1 and B2
+  can be expanded (zero strides, as ``u.sum()``'s ones are) or views that
+  start off a 16-byte boundary: ``_build.aligned`` hands the kernels a
+  contiguous, aligned copy of the same values.  Reverse-mode nesting
+  carries no forward-mode tangent, so ``_build.tangents`` does not fire."""
+  ones = torch.ones(()).expand(2, 4, 4, 49)
+  assert ones.stride() == (0, 0, 0, 0)
+  view = torch.arange(2 * 4 * 4 * 50, dtype=torch.float32).reshape(
+      2, 4, 4, 50)[..., 1:]
+  for t in (ones, view):
+    got = _build.aligned(t)
+    assert got.is_contiguous() and got.data_ptr() % 16 == 0
+    assert torch.equal(got, t)
+  f1 = torch.randn(1, 5, 5, 8, requires_grad=True)
+  d1, = torch.autograd.grad(k3.correlation(f1, f1).sum(), f1,
+                            create_graph=True)
+  assert not _build.tangents('correlation', f1, d1)

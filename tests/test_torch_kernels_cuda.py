@@ -330,6 +330,38 @@ def test_correlation_second_order_matches_plain(card, shape):
     assert _rel(got, want) <= TOL[torch.float32]
 
 
+def _third_order(fn, f1, f2, dout, r, q):
+  """The gradient in (f1, f2, dout) of a seeded linear functional (``q``)
+  of the second-order product of ``fn`` (as in the test above)."""
+  leaves = [t.clone().requires_grad_() for t in (f1, f2, dout)]
+  d1, d2 = torch.autograd.grad(fn(leaves[0], leaves[1]), leaves[:2],
+                               leaves[2], create_graph=True)
+  second = torch.autograd.grad(((d1 + d2) * r).sum(), leaves,
+                               create_graph=True)
+  return torch.autograd.grad(sum((a * b).sum() for a, b in zip(second, q)),
+                             leaves)
+
+
+@pytest.mark.parametrize('shape', [(8, 16, 16, 32), (3, 13, 11, 24)])
+def test_correlation_third_order_matches_plain(card, shape):
+  """A third-order product through K3, B1 and B2 (the PINN residual's
+  parameter gradient needs it) against autograd of the plain cost volume,
+  within 1e-5 of max |plain|."""
+  f1, f2, r, q1, q2 = (torch.randn(shape, generator=card, device='cuda')
+                       for _ in range(5))
+  dout, q3 = (torch.randn(shape[:3] + (49,), generator=card, device='cuda')
+              for _ in range(2))
+  before = [k3.correlation.launches, k3.correlation_df1.launches,
+            k3.correlation_df2.launches]
+  got = _third_order(k3.correlation, f1, f2, dout, r, (q1, q2, q3))
+  assert all(n > b for n, b in zip(
+      [k3.correlation.launches, k3.correlation_df1.launches,
+       k3.correlation_df2.launches], before))
+  want = _third_order(k3.correlation_plain, f1, f2, dout, r, (q1, q2, q3))
+  for g, w in zip(got, want):
+    assert _rel(g, w) <= 1e-5
+
+
 def test_correlation_vmap_of_grad_is_one_launch_each(card):
   f1 = torch.randn((3, 2, 16, 16, 32), generator=card, device='cuda')
   f2 = torch.randn((3, 2, 16, 16, 32), generator=card, device='cuda')
@@ -415,6 +447,63 @@ def test_prelim_step_gradients_kernel_path_match_plain_path(card):
   for name, want in grads[1].items():
     assert float((grads[0][name] - want).abs().max()) <= (
         TOL[torch.float32] * top), name
+
+
+def test_pinn_residual_gradient_kernel_path_matches_plain_path(card):
+  """The phase-2 loss at pinn_pde's full width (batch 2): the gradient of
+  the NS residual alone (at Re 1e7 and the loss weight 1e-5 it would
+  vanish inside the total) and of the whole loss, cost volumes on the
+  kernels against their plain versions; every leaf within 1e-4 of the
+  largest leaf's gradient.  Per level, the residual's gradient launches
+  K3, B1 and B2 29 times each: the forward 1 K3; u's and v's first
+  derivatives 2 B1 and 2 B2; the four second derivatives 8 of each; the
+  parameter gradient the rest."""
+  from b_pinn_kalman_filter_tpu_torch.pinn import losses as pinn_losses
+  from b_pinn_kalman_filter_tpu_torch.pinn import pinn
+  config, kernel_model = _prelim_setup(True)
+  _, plain_model = _prelim_setup(False)
+  B, S = 2, config.data.image_size
+  x, y = (torch.linspace(0, 1, S, device='cuda') + 0.01 * torch.rand(
+      (B, S, S), generator=card, device='cuda') for _ in range(2))
+  batch = (torch.rand((B, S, S, 1), generator=card, device='cuda'),
+           torch.rand((B, S, S, 1), generator=card, device='cuda'),
+           x[..., None], y.transpose(1, 2)[..., None],
+           torch.arange(1, B + 1, device='cuda', dtype=torch.float32),
+           torch.randn((B, S, S, 3), generator=card, device='cuda'))
+  mask = (torch.rand((S, S, 1), generator=card, device='cuda') < 0.9).float()
+  noise = tuple(torch.randn((B, S, S, 1), generator=card, device='cuda')
+                for _ in range(2))
+  kernels = (k3.correlation, k3.correlation_df1, k3.correlation_df2)
+  results, stages = [], []
+
+  def trace(stage):
+    stages.append((stage, [k.launches for k in kernels]))
+
+  for model in (kernel_model, plain_model):
+    params = dict(model.named_parameters())
+    for k in kernels:
+      k.launches = 0
+    f1, f2, x, y, t, _ = batch
+    residual = pinn.equation_mse_from_outputs(
+        model, params, f1, f2, x, y, t, pinn_losses.RE, trace=trace)
+    g_res = torch.autograd.grad(residual, list(params.values()),
+                                allow_unused=True, materialize_grads=True)
+    trace('parameter gradient')
+    loss, _, _ = pinn_losses.get_pinn_loss_fn(config, model)(
+        params, mask, batch, noise=noise)
+    g_all = torch.autograd.grad(loss, list(params.values()))
+    results.append([dict(zip(params, g)) for g in (g_res, g_all)])
+  levels = len(config.model.feature_nums)
+  assert stages[:4] == [
+      (stage, [n * levels for n in counts]) for stage, counts in (
+          ('forward', (1, 0, 0)), ('first', (1, 2, 2)),
+          ('second', (9, 10, 10)), ('parameter gradient', (29, 29, 29)))]
+  assert all(k.sizes[(S // 2, S // 2)] > 0 for k in kernels)
+  for got, want in zip(*results):
+    top = max(float(v.abs().max()) for v in want.values())
+    for name, w in want.items():
+      assert float((got[name] - w).abs().max()) <= (
+          TOL[torch.float32] * top), name
 
 
 def _ns_fields(card, shape):

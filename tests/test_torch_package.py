@@ -37,6 +37,8 @@ if not torch.cuda.is_available():
                lambda: ukf_lib.run(configs.get_config('pinn/pinn_pde'),
                                    'workdir-never-made', n_steps=1),
                lambda: pinn_lib.train_prelim(configs.get_config(
+                   'pinn/pinn_pde'), 'workdir-never-made'),
+               lambda: pinn_lib.train(configs.get_config(
                    'pinn/pinn_pde'), 'workdir-never-made')):
     try:
       call()
@@ -53,8 +55,8 @@ print('ok')
 def test_port_imports_no_jax_and_defaults_to_the_card():
   """In a fresh interpreter: import every port module and chip_smoke.py,
   then check sys.modules, and without a card that the default device,
-  run_lib.sample, run_lib.train, ukf_lib.run, pinn_lib.train_prelim and
-  chip_smoke.main() refuse."""
+  run_lib.sample, run_lib.train, ukf_lib.run, pinn_lib.train_prelim,
+  pinn_lib.train and chip_smoke.main() refuse."""
   env = dict(os.environ, PYTHONPATH=ROOT)
   out = subprocess.run([sys.executable, '-c', _IMPORT_ALL], cwd=ROOT,
                        env=env, capture_output=True, text=True, timeout=240)
