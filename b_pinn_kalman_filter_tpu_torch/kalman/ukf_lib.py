@@ -6,8 +6,9 @@ Counterpart of the JAX package's ``kalman/ukf_lib.py`` (``UKF``,
 the PINN as one vmapped forward (``bayes.sample_uvp``), with one cost volume
 (kernel K3) per pyramid level over all the draws; then one predict whose NS
 dynamics step all 2n+1 sigma points in one call of kernel K4; then the
-update.  Not ported
-yet: checkpoint restore, the PNG grid of ``run`` and the ``mesh=`` option.
+update.  ``run`` filters with the posterior of a trained B-PINN
+checkpoint when it is given one.  Not ported yet: the ``mesh=`` option
+(ROADMAP.md A.12).
 """
 
 from __future__ import annotations
@@ -27,7 +28,11 @@ from b_pinn_kalman_filter_tpu_torch.kalman.dynamics import (IdentityKFMeasure,
                                                             NSDynamics)
 from b_pinn_kalman_filter_tpu_torch.kalman.patching import patch, unpatch
 from b_pinn_kalman_filter_tpu_torch.pinn import bayes
+from b_pinn_kalman_filter_tpu_torch.pinn import losses as pinn_losses
 from b_pinn_kalman_filter_tpu_torch.pinn.pinn_lib import init_pinn
+from b_pinn_kalman_filter_tpu_torch.train import checkpoint as ckpt_lib
+from b_pinn_kalman_filter_tpu_torch.train import state as state_lib
+from b_pinn_kalman_filter_tpu_torch.utils.misc import save_image_grid
 
 Tensor = torch.Tensor
 N_DRAWS = 8   # B-PINN posterior draws per measurement
@@ -111,18 +116,22 @@ class PINN_KF:
 
 
 def run(config, workdir: str, n_steps: int = 10, device=None,
-        cycle_seconds: Optional[List[Tuple[float, float]]] = None) -> float:
+        cycle_seconds: Optional[List[Tuple[float, float]]] = None,
+        ckptdir: Optional[str] = None) -> float:
   """The ``ukf`` entry point: B-PINN + UKF over a synthetic NS rollout.
 
-  Seeded from ``config.seed`` (rollout, observation noise, draws); the
+  Seeded from ``config.seed`` (rollout, observation noise, draws).  The
   PINN is initialised from seed 0 and its posterior built around it
-  (``pretrained=False``): checkpoints are not ported yet.  Writes
-  ``ukf_mse.txt`` (the f-MSE over all cycles), ``ukf_preds.npy``,
-  ``ukf_gts.npy``, ``ukf_obsvs.npy`` ((n_steps, H, W) each) and the final
-  belief ``ukf_belief.npz`` (``mean`` (N, n), ``sqrt_cov`` (N, n, n)) into
-  ``workdir``; returns the f-MSE.  With ``cycle_seconds`` a list, each
-  cycle appends its (measurement, filter) seconds on the host clock, the
-  device synchronised around each part.
+  (``pretrained=False``); where the B-PINN checkpoint ``ckptdir`` exists
+  (a ``pinn_lib.train_bpinn`` snapshot), the posterior is that state's
+  ``ema_params`` instead.  Writes ``ukf_mse.txt`` (the f-MSE over all
+  cycles), ``ukf_preds.npy``, ``ukf_gts.npy``, ``ukf_obsvs.npy``
+  ((n_steps, H, W) each), the final belief ``ukf_belief.npz`` (``mean``
+  (N, n), ``sqrt_cov`` (N, n, n)) and ``ukf.png`` (a row each of the
+  ground truths, the filtered f and the observations, clipped to [0, 1])
+  into ``workdir``; returns the f-MSE.  With ``cycle_seconds`` a list,
+  each cycle appends its (measurement, filter) seconds on the host clock,
+  the device synchronised around each part.
   """
   device = get_device(device)
   os.makedirs(workdir, exist_ok=True)
@@ -131,8 +140,17 @@ def run(config, workdir: str, n_steps: int = 10, device=None,
                     device=device)
 
   model, params = init_pinn(config, seed=0, device=device)
-  pikal = PINN_KF(config, model,
-                  bayes.make_bpinn_params(params, config, pretrained=False))
+  bparams = bayes.make_bpinn_params(params, config, pretrained=False)
+  if ckptdir and os.path.exists(ckptdir):
+    # The checkpoint is a whole B-PINN train state; its template's
+    # optimizer is get_pinn_optimizer(is_bpinn=True)'s, as in JAX.
+    template = state_lib.create_train_state(
+        bayes.flatten_posterior(bparams),
+        pinn_losses.get_pinn_optimizer(config, is_bpinn=True),
+        config.model.ema_rate)
+    bparams = bayes.nest_posterior(
+        ckpt_lib.restore_checkpoint(ckptdir, template).ema_params)
+  pikal = PINN_KF(config, model, bparams)
   generator = torch.Generator(device=device).manual_seed(config.seed)
 
   def prep(channel, idx):
@@ -171,6 +189,9 @@ def run(config, workdir: str, n_steps: int = 10, device=None,
                             ('obsvs', obsvs))}
   for name, array in arrays.items():
     np.save(os.path.join(workdir, f'ukf_{name}.npy'), array)
+  grid = np.concatenate([arrays[name] for name in ('gts', 'preds', 'obsvs')])
+  save_image_grid(np.clip(grid[..., None], 0, 1),
+                  os.path.join(workdir, 'ukf.png'), nrow=n_steps)
   belief = pikal.ukf.belief
   np.savez(os.path.join(workdir, 'ukf_belief.npz'),
            mean=belief.mean.cpu().numpy(),

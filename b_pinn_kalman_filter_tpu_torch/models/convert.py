@@ -122,14 +122,40 @@ def _adam_state(adam, params: Mapping[str, torch.Tensor], what: str
                    nu=_tensors_from_jax(adam.nu, params, f'{what}nu: '))
 
 
+def _is_posterior(tree: Mapping[str, Any]) -> bool:
+  """Whether a flax params tree is a B-PINN posterior ``{key: {'mu': ...,
+  'rho': ...}}``."""
+  return bool(tree) and all(isinstance(v, Mapping) and set(v) == {'mu', 'rho'}
+                            for v in tree.values())
+
+
+def _state_names(tree: Mapping[str, Any], model: nn.Module
+                 ) -> Dict[str, torch.Tensor]:
+  """The port's names for the leaves of a train state's ``params``, each
+  with a tensor of its shape and device: ``model``'s parameters, or for a
+  B-PINN posterior the flat posterior names (``pinn/bayes.py``
+  ``flatten_posterior``) over the PINN sub-modules' parameters."""
+  if not _is_posterior(tree):
+    return dict(model.named_parameters())
+  names = {}
+  for key in tree:
+    sub = dict(getattr(model, key).named_parameters())
+    for part in ('mu', 'rho'):
+      names.update({f'{key}.{part}.{n}': p for n, p in sub.items()})
+  return names
+
+
 def train_state_from_jax(jax_state, model: nn.Module) -> TrainState:
   """A JAX package ``TrainState`` (params, the optax Adam moments and
   count, the EMA, the step) as the port's ``train.state.TrainState`` over
-  ``model``'s parameter names, on their devices.  A ``multi_transform``
-  state becomes ``{label: AdamState}``, each over the names its group's
-  moments hold (the others are optax's masked nodes); every parameter
-  must fall in exactly one group."""
-  params = dict(model.named_parameters())
+  ``model``'s parameter names, on their devices.  A state whose params are
+  a B-PINN posterior (``{key: {'mu', 'rho'}}`` over the PINN's
+  sub-modules) takes the flat posterior names ``<key>.mu.<name>`` and
+  ``<key>.rho.<name>``.  A ``multi_transform`` state becomes ``{label:
+  AdamState}``, each over the names its group's moments hold (the others
+  are optax's masked nodes); every parameter must fall in exactly one
+  group."""
+  params = _state_names(jax_state.params, model)
   adam = _adam_parts(jax_state.opt_state)
   if isinstance(adam, Mapping):
     opt_state = {}

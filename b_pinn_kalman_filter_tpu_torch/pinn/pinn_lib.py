@@ -1,11 +1,11 @@
-"""PINN set-up and training: ``init_pinn`` and the two phases of
-``train``: phase 1, the preliminary FlowNet + PressureNet training on
-masked and noised frames (also on its own, :func:`train_prelim`), and
-phase 2, the training with the Navier–Stokes residual.
+"""PINN set-up and training: ``init_pinn``; the two phases of ``train``:
+phase 1, the preliminary FlowNet + PressureNet training on masked and
+noised frames (also on its own, :func:`train_prelim`), and phase 2, the
+training with the Navier–Stokes residual; and ``train_bpinn``, the B-PINN
+posterior's training from a MOPED bootstrap of a PINN checkpoint.
 
 Counterpart of the JAX package's ``pinn/pinn_lib.py`` ``init_pinn``,
-``unbatch``, ``_run_phase`` and ``train``.  ``train_bpinn`` is ROADMAP.md
-A.3.
+``unbatch``, ``_run_phase``, ``train`` and ``train_bpinn``.
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ from b_pinn_kalman_filter_tpu_torch.data.datasets import (get_dataset,
                                                           get_mask_dataset)
 from b_pinn_kalman_filter_tpu_torch.device import get_device
 from b_pinn_kalman_filter_tpu_torch.models import layers
+from b_pinn_kalman_filter_tpu_torch.pinn import bayes
 from b_pinn_kalman_filter_tpu_torch.pinn import losses as pinn_losses
 from b_pinn_kalman_filter_tpu_torch.pinn.pinn import PINN
 from b_pinn_kalman_filter_tpu_torch.train import checkpoint as ckpt_lib
@@ -111,11 +112,14 @@ def _run_phase(config, state, step_fns, mask_it, train_iter, eval_iter,
 
 
 class _Run:
-  """What the phases of one training run share: the model, the mask and
-  data iterators, the noise generator and the checkpoint paths, all
+  """What the phases of one training run share: the model (its init seeded
+  with ``seed``, default ``config.seed``), the mask and data iterators,
+  the noise generator (seeded likewise) and the checkpoint paths, all
   carried from phase 1 on into phase 2."""
 
-  def __init__(self, config, workdir: str, device):
+  def __init__(self, config, workdir: str, device,
+               seed: Optional[int] = None):
+    seed = config.seed if seed is None else seed
     self.config = config
     self.device = device
     self.checkpoint_dir = os.path.join(workdir, 'checkpoints')
@@ -124,12 +128,12 @@ class _Run:
     self.checkpoint_pinn = os.path.join(meta, 'checkpoint_pinn')
     for d in (self.checkpoint_dir, meta):
       os.makedirs(d, exist_ok=True)
-    self.model, _ = init_pinn(config, device=device)
+    self.model, self.init_params = init_pinn(config, seed, device)
     self.mask_it = get_mask_dataset(config)
     train_ds, eval_ds = get_dataset(config, device=device)
     self.train_iter: Iterator = iter(train_ds)
     self.eval_iter: Iterator = iter(eval_ds)
-    self.generator = torch.Generator(device=device).manual_seed(config.seed)
+    self.generator = torch.Generator(device=device).manual_seed(seed)
 
   def phase(self, state, get_step_fn, tx, end_step: int, meta: str,
             tag: str, history):
@@ -212,3 +216,39 @@ def train(config, workdir: str, *, device=None,
   return run.phase(state, pinn_losses.get_pinn_step_fn, tx,
                    t.n_iters + t.n_pinn_iters, run.checkpoint_pinn, 'pinn',
                    history)
+
+
+def train_bpinn(config, workdir: str, ckpt_dir: Optional[str] = None, *,
+                device=None, history: Optional[List[Dict[str, Any]]] = None
+                ) -> state_lib.TrainState:
+  """B-PINN posterior training on ``device`` (default ``cuda``); returns the
+  final train state, its ``params`` the flat posterior of
+  ``pinn/bayes.py``.
+
+  The JAX ``train_bpinn``, step for step: the PINN's init seeded with
+  ``config.seed + 7`` (and the noise generator likewise); the posterior
+  around it with the priors' constant rho, or, when the PINN checkpoint
+  ``ckpt_dir`` exists, the MOPED posterior around that checkpoint's
+  ``ema_params`` (its EMA the same posterior); ``get_pinn_optimizer``
+  with ``is_bpinn`` (``optim.bpinn_lr``, ``bpinn_weight_decay``) and the
+  PressureNet's learning rate x 0.05; the preemption checkpoint
+  ``workdir/checkpoints-meta/checkpoint`` restored instead when present
+  (``checkpoint.restore_bpinn_checkpoint``); then ``_run_phase``'s steps
+  ``state.step`` .. ``training.n_bpinn_iters`` of
+  ``bayes.get_bpinn_prelim_step_fn``, tag ``'bpinn'``, snapshots under
+  ``workdir/checkpoints``.  ``history`` as :func:`train_prelim`'s, each
+  entry's ``phase`` ``'bpinn'``.
+  """
+  run = _Run(config, workdir, get_device(device), seed=config.seed + 7)
+  tx = pinn_losses.get_pinn_optimizer(config, lr_mul_pres=0.05,
+                                      is_bpinn=True)
+  state = state_lib.create_train_state(
+      bayes.flatten_posterior(bayes.make_bpinn_params(
+          run.init_params, config, pretrained=False)),
+      tx, config.model.ema_rate)
+  state = ckpt_lib.restore_bpinn_checkpoint(ckpt_dir, run.checkpoint_meta,
+                                            state, config)
+  logger.info('Starting B-PINN Training loop at step %d.', state.step)
+  return run.phase(state, bayes.get_bpinn_prelim_step_fn, tx,
+                   config.training.n_bpinn_iters, run.checkpoint_meta,
+                   'bpinn', history)

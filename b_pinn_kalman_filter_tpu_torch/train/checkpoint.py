@@ -8,8 +8,11 @@ loop restores at start.  A checkpoint is one ``torch.save`` file of
 groups of a ``MultiTransform``, ``opt_state: {label: {count, mu, nu}}``),
 each tree a ``{flax name: tensor}`` dict (the PINN's names carry their
 ``flownet.`` or ``pressurenet.`` prefix), written to a temporary file and
-renamed, so that a reader never sees half of one.  (The reference's
-``.pth`` layout, which the JAX importers read, is ROADMAP.md A.7.)
+renamed, so that a reader never sees half of one.
+``restore_bpinn_checkpoint`` starts a B-PINN state from the B-PINN
+preemption checkpoint or from a PINN checkpoint (the MOPED bootstrap).
+(The reference's ``.pth`` layout, which the JAX importers read, is
+ROADMAP.md A.7.)
 """
 
 from __future__ import annotations
@@ -22,7 +25,10 @@ from typing import Dict, Optional
 
 import torch
 
-from b_pinn_kalman_filter_tpu_torch.train.state import AdamState, TrainState
+from b_pinn_kalman_filter_tpu_torch.pinn import bayes
+from b_pinn_kalman_filter_tpu_torch.pinn import losses as pinn_losses
+from b_pinn_kalman_filter_tpu_torch.train.state import (AdamState, TrainState,
+                                                        create_train_state)
 
 
 def _groups(opt_state) -> Dict[Optional[str], AdamState]:
@@ -98,6 +104,34 @@ def restore_checkpoint(path: str, state: TrainState,
                for label, group in groups.items()}
   return dataclasses.replace(state, step=int(tree['step']),
                              opt_state=opt_state.get(None, opt_state))
+
+
+def restore_bpinn_checkpoint(pinn_ckpt_dir: Optional[str], meta_dir: str,
+                             bpinn_state: TrainState, config) -> TrainState:
+  """The B-PINN state at the start of its training: the B-PINN preemption
+  checkpoint ``meta_dir`` when it exists; else, when the PINN checkpoint
+  ``pinn_ckpt_dir`` exists, the MOPED posterior around its ``ema_params``
+  (mu the weights, rho ``inv_softplus(delta |w|)``), copied into both the
+  params and the EMA of ``bpinn_state`` (its Adam state and step as they
+  were); else ``bpinn_state`` as it is.  ``bpinn_state.params`` is the
+  flat posterior of ``pinn/bayes.py``."""
+  if os.path.exists(meta_dir):
+    return restore_checkpoint(meta_dir, bpinn_state)
+  if not (pinn_ckpt_dir and os.path.exists(pinn_ckpt_dir)):
+    return bpinn_state
+  posterior = bayes.nest_posterior(bpinn_state.params)
+  template = create_train_state(
+      {f'{key}.{name}': mu.detach().clone() for key in posterior
+       for name, mu in posterior[key]['mu'].items()},
+      pinn_losses.get_pinn_optimizer(config), config.model.ema_rate)
+  pinn_params = restore_checkpoint(pinn_ckpt_dir, template).ema_params
+  moped = bayes.flatten_posterior(bayes.make_bpinn_params(
+      bayes.by_key(pinn_params), config, pretrained=True))
+  with torch.no_grad():
+    for name, value in moped.items():
+      bpinn_state.params[name].copy_(value)
+      bpinn_state.ema_params[name].copy_(value)
+  return bpinn_state
 
 
 def latest_checkpoint_step(checkpoint_dir: str) -> Optional[int]:

@@ -47,8 +47,8 @@ def train(config, workdir: str, *, device=None,
   0``), and a snapshot (``s != 0`` and ``s % snapshot_freq == 0`` or ``s
   == n_iters``): ``checkpoints/checkpoint_{s // snapshot_freq}`` and, with
   ``snapshot_sampling``, ``batch_size // 4`` samples under the EMA saved
-  to ``samples/iter_{s}/sample.np`` (uint8; the PNG grid waits for the
-  ``utils`` port, ROADMAP.md A.7).  Losses go to this module's logger
+  to ``samples/iter_{s}/sample.np`` (uint8; its PNG grid is ROADMAP.md
+  A.7).  Losses go to this module's logger
   (no TensorBoard writer).  One ``torch.Generator`` seeded with
   ``config.seed`` feeds t, z, dropout, the eval draws and the samples.
   ``tpu.steps_per_dispatch`` is kept for its key and changes nothing: the

@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py [--steps N] [--requests R] [--cycles C]
                           [--train-steps T] [--prelim-steps P]
-                          [--pinn-steps Q] [--seed S] [--out DIR]
+                          [--pinn-steps Q] [--bpinn-steps R] [--seed S]
+                          [--out DIR]
 
 Run from the root of a checkout; it needs one CUDA card, ``nvcc`` and
 ``nvidia-smi``, and imports nothing of JAX or the JAX package.  Phases:
@@ -116,12 +117,36 @@ Run from the root of a checkout; it needs one CUDA card, ``nvcc`` and
    step under ``torch.profiler`` (K3's and its backward's device ms), then
    a resume (phase 1 after its last preemption checkpoint, phase 2 from
    ``checkpoint_pinn``);
-11. print the kernel table as one JSON line (every kernel of the paths and
+11. B-PINN training and the pipeline (the same width): one B-PINN loss on
+   a MOPED posterior around a randomised PINN, kernel path against plain
+   path (the same batch, mask, noises and draw): the flow and pressure
+   MSEs and the two KL terms each within the limit of itself, the
+   gradients in mu and rho of the data MSEs alone and of the whole loss,
+   every leaf within the limit of the largest leaf's, and K3, B1, B2 5, 5,
+   5 launches a train step and K3 5 an eval step; then, on a rollout made
+   anew in an empty data directory, ``pinn_lib.train`` (phase 1 for steps
+   0..2, phase 2 for 2..4) and ``train_bpinn`` from its last snapshot:
+   first its step 0 alone (at lr 0: mu must equal the snapshot's
+   ``ema_params`` bit for bit, rho ``inv_softplus(delta |w|)``), then
+   steps 0..``--bpinn-steps`` (default 20) with log, eval, the preemption
+   checkpoint and a snapshot firing, the launch counts set to 0 before and
+   read after; checks: finite losses, every mu and rho leaf moved, both
+   groups' Adam counts, the steady step's seconds and samples/s, the
+   batch's assembly, peak memory, one steady step under
+   ``torch.profiler``, a resume; ``ukf_lib.run`` from the B-PINN snapshot
+   for 3 cycles (its posterior the snapshot's ``ema_params``, the belief,
+   ``ukf.png``); ``simulator.run`` for 100 steps at 64x64 (K4 at batch 1)
+   with the kernel rollout against the plain one, and ``simulate`` for 10
+   frames under the bootstrapped mu; and the command line, ``python -m
+   b_pinn_kalman_filter_tpu_torch --mode ukf --ckptdir <the B-PINN
+   snapshot>`` in a subprocess;
+12. print the kernel table as one JSON line (every kernel of the paths and
    every yardstick beside it; K3's and K3 backward's rows also carry their
-   phase-2 launches and device ms), then the ``{"ok": true, ...}`` line.
-   With ``--out DIR`` the per-shape details go to ``DIR/chip_smoke.json``.
+   phase-2 and B-PINN launches, device ms and bounds a step), then the
+   ``{"ok": true, ...}`` line.  With ``--out DIR`` the per-shape details go
+   to ``DIR/chip_smoke.json``.
 
-Error limits (relative to max |reference|), in phases 3 to 5, 7, 9 and 10:
+Error limits (relative to max |reference|), in phases 3 to 5, 7 and 9 to 11:
 f32 1e-4 (K3 at third order 1e-5); bf16 3e-2, the bound
 tests/test_winograd.py holds bf16 Winograd to.
 
@@ -152,7 +177,7 @@ from b_pinn_kalman_filter_tpu_torch.core import losses, sampling
 from b_pinn_kalman_filter_tpu_torch.core import sde as sde_lib
 from b_pinn_kalman_filter_tpu_torch.data.datasets import get_dataset
 from b_pinn_kalman_filter_tpu_torch.data.ns_rollout import ns_rollout
-from b_pinn_kalman_filter_tpu_torch.kalman import ukf_lib
+from b_pinn_kalman_filter_tpu_torch.kalman import simulator, ukf_lib
 from b_pinn_kalman_filter_tpu_torch.models import layers, registry
 from b_pinn_kalman_filter_tpu_torch.ops import _build
 from b_pinn_kalman_filter_tpu_torch.ops import conv3x3 as k1
@@ -166,6 +191,7 @@ from b_pinn_kalman_filter_tpu_torch.pinn.pinn import (
 from b_pinn_kalman_filter_tpu_torch.pinn.pinn_lib import init_pinn
 from b_pinn_kalman_filter_tpu_torch.train import run_lib
 from b_pinn_kalman_filter_tpu_torch.train import state as state_lib
+from b_pinn_kalman_filter_tpu_torch.utils.misc import PNG_SIGNATURE
 
 CONFIG = 'vp/cifar10_ddpmpp_continuous'
 BATCH = 8
@@ -467,6 +493,16 @@ def kernel_phase(name, sites, check, seed):
                            call_ms=call_total, levels=levels), failures
 
 
+def corr_bound(shape):
+  """K3's least time in ms at (B, H, W, C), f32, and what sets it: f1 and
+  f2 read once, the 49-channel cost volume written once; 49 C
+  multiply-adds a pixel."""
+  B, H, W, C = shape
+  pixels = B * H * W
+  return bound(2 * 49 * C * pixels, 2 * pixels * C * 4 + 49 * pixels * 4,
+               torch.float32)
+
+
 def check_corr(shape, seed):
   """K3 against its plain version at (B, H, W, C), f32, beside the tile
   kernel (its first card design) in turns; K3 run twice for its bits."""
@@ -487,10 +523,7 @@ def check_corr(shape, seed):
   row['prev_abs_err'], row['prev_rel_err'] = rel_err(tile, want)
   row['same_bits_twice'] = bool(torch.equal(got, again))
   row['plan'] = k3.correlation_plan(*shape)
-  pixels = B * H * W
-  row['bound_ms'], row['bound_by'] = bound(
-      2 * 49 * C * pixels, 2 * pixels * C * 4 + 49 * pixels * 4,
-      torch.float32)
+  row['bound_ms'], row['bound_by'] = corr_bound(shape)
   row.update(max_abs_err=abs_err, rel_err=rel)
   return row
 
@@ -1543,6 +1576,423 @@ def pinn_phase(pinn_steps, per_step, per_eval, seed):
   return report, launches, failures
 
 
+BPINN_CONFIG = 'pinn/pinn_pde'
+
+
+def moped_posterior(config, seed):
+  """The flat MOPED posterior (``pinn/bayes.py``) around a PINN with every
+  parameter randomised, so that no leaf is zero and no rho sits at
+  ``inv_softplus(1e-12)``."""
+  model = PINN(config).cuda()
+  randomize_(model, seed)
+  params = {key: {n: p.detach() for n, p in
+                  getattr(model, key).named_parameters()}
+            for key in ('flownet', 'pressurenet')}
+  return bayes.flatten_posterior(bayes.make_bpinn_params(params, config,
+                                                         pretrained=True))
+
+
+def bpinn_grad_phase(seed):
+  """One B-PINN loss at full width, kernel path (K3, B1, B2) against plain
+  path (the plain cost volume under autograd): the same MOPED posterior,
+  batch, mask, noises and draw.  Compares the four terms (the flow and
+  pressure MSEs, the two KL terms) each against itself, and the
+  gradients in mu and rho of the data MSEs alone (the KL terms, thousands
+  of times larger and the same torch ops on both paths, would hide
+  them) and of the whole loss, every leaf within the limit of the largest
+  leaf's; counts the kernel path's K3, B1 and B2 launches for one train
+  step and one eval step.  Returns (report, failures)."""
+  config = configs.get_config(BPINN_CONFIG)
+  batch, mask, noise = prelim_batch(config, seed)
+  posterior = moped_posterior(config, seed)
+  g = torch.Generator(device='cuda').manual_seed(seed + 2)
+  eps = bayes.sample_eps(g, bayes.nest_posterior(posterior))
+  out, results = {}, {}
+  for path, kernels in (('kernel', True), ('plain', False)):
+    model = PINN(config, kernels=kernels).cuda()
+    params = {k: v.clone().requires_grad_() for k, v in posterior.items()}
+    loss_fn = bayes.get_bpinn_loss_fn(config, model)
+    reset_counts()
+    loss, _, _, terms = loss_fn(params, mask, batch, noise=noise, eps=eps)
+    g_all = torch.autograd.grad(loss, list(params.values()))
+    step_counts = flow_counts()
+    reset_counts()
+    with torch.no_grad():
+      loss_fn(params, mask, batch, noise=noise, eps=eps)
+    eval_counts = flow_counts()
+    _, _, _, terms = loss_fn(params, mask, batch, noise=noise, eps=eps)
+    g_data = torch.autograd.grad(terms['flow_mse'] + terms['pres_mse'],
+                                 list(params.values()), allow_unused=True,
+                                 materialize_grads=True)
+    torch.cuda.synchronize()
+    results[path] = dict(
+        terms={k: float(v.detach()) for k, v in terms.items()},
+        data=dict(zip(params, g_data)), total=dict(zip(params, g_all)))
+    if kernels:
+      out.update(step_launches=step_counts, eval_launches=eval_counts)
+    del model, params, loss, terms, g_all, g_data
+    torch.cuda.empty_cache()
+  k, p = results['kernel'], results['plain']
+  tol = TOL[torch.float32]
+  term_rel = {n: abs(k['terms'][n] - v) / abs(v) for n, v in p['terms'].items()}
+  out.update(terms_kernel=k['terms'], terms_plain=p['terms'],
+             term_rel=term_rel, tol=tol, leaves=len(posterior))
+  failures = []
+  log(f'  terms kernel {k["terms"]} plain {p["terms"]} (rel '
+      + ', '.join(f'{n} {r:.2e}' for n, r in term_rel.items()) + ')')
+  if not max(term_rel.values()) <= tol:
+    failures.append(f'B-PINN terms: rel {term_rel}')
+  for which in ('data', 'total'):
+    worst, top3 = leaf_errors(k[which], p[which])
+    finite = all(bool(torch.isfinite(v).all()) for v in k[which].values())
+    out[f'{which}_grad'] = dict(max_leaf_rel=worst, worst_leaves=top3,
+                                finite=finite)
+    log(f'  {which} gradient in mu and rho ({len(posterior)} leaves), '
+        'kernel vs plain: worst leaf rel to the largest leaf '
+        + ', '.join(f'{n} {e:.2e}' for n, e in top3.items())
+        + f' (limit {tol}), finite {finite}')
+    if not (finite and worst <= tol):
+      failures.append(f'B-PINN {which} gradient: worst leaf {worst:.3e}, '
+                      f'finite {finite}')
+  levels = len(config.model.feature_nums)
+  want_step = {name: levels for name, _ in FLOW_KERNELS}
+  want_eval = dict(want_step, correlation_df1=0, correlation_df2=0)
+  log(f'  launches of one train step {out["step_launches"]} (expected '
+      f'{want_step}); of one eval step {out["eval_launches"]} (expected '
+      f'{want_eval})')
+  if out['step_launches'] != want_step or out['eval_launches'] != want_eval:
+    failures.append(f'B-PINN launches: step {out["step_launches"]}, eval '
+                    f'{out["eval_launches"]}')
+  del results, k, p
+  torch.cuda.empty_cache()
+  return out, failures
+
+
+def _pinn_parts(params, part):
+  """``{'<key>.<name>': tensor}`` of a flat posterior's ``part``."""
+  return {f'{key}.{name}': v
+          for key, parts in bayes.nest_posterior(params).items()
+          for name, v in parts[part].items()}
+
+
+def bpinn_pipeline(bpinn_steps, seed, workdir):
+  """The PINN pipeline at pinn_pde's full width on the synthetic PDE data
+  (rolled out into an empty data directory): ``pinn_lib.train`` (phase 1
+  for steps 0..2, phase 2 for steps 2..4), then ``train_bpinn`` from its
+  last snapshot, first for its step 0 alone (at the warmup's lr 0 the
+  state after it is the MOPED bootstrap), then for steps 0..
+  ``bpinn_steps`` with the cadence cut so that log, eval, the preemption
+  checkpoint and a snapshot fire, the launch counts set to 0 before and
+  read after; one steady step profiled; a resume from the preemption
+  checkpoint.  Returns (report, the B-PINN snapshot, the bootstrapped
+  PINN parameters (mu), failures)."""
+  config = configs.get_config(BPINN_CONFIG)
+  t = config.training
+  t.n_iters, t.n_pinn_iters = 2, 2
+  t.log_freq = t.eval_freq = t.snapshot_freq_for_preemption = 1000
+  t.snapshot_freq = 2
+  levels = len(config.model.feature_nums)
+  failures = []
+  pinn_dir = os.path.join(workdir, 'pinn')
+  start = time.time()
+  pinn_lib.train(config, pinn_dir, device='cuda')
+  pinn_s = time.time() - start
+  snapshot = os.path.join(pinn_dir, 'checkpoints', 'checkpoint_2')
+  saved = torch.load(snapshot, map_location='cuda', weights_only=True)
+  ema = saved['ema_params']
+
+  # The bootstrap: step 0 alone moves nothing (lr 0).
+  t.n_bpinn_iters = 0
+  boot = pinn_lib.train_bpinn(config, os.path.join(workdir, 'boot'),
+                              snapshot, device='cuda')
+  delta = config.model.bpinn_moped_delta
+  mu, rho = _pinn_parts(boot.params, 'mu'), _pinn_parts(boot.params, 'rho')
+  mu_exact = mu.keys() == ema.keys() and all(
+      torch.equal(mu[n], w) for n, w in ema.items())
+  rho_exact = all(torch.equal(rho[n], bayes.inv_softplus(delta * w.abs()))
+                  for n, w in ema.items())
+  boot_params = {k: v.detach().clone() for k, v in boot.params.items()}
+  del boot
+
+  t.n_bpinn_iters = bpinn_steps
+  t.log_freq = t.eval_freq = bpinn_steps // 2
+  t.snapshot_freq_for_preemption = bpinn_steps // 2
+  t.snapshot_freq = bpinn_steps
+  bpinn_dir = os.path.join(workdir, 'bpinn')
+  history = []
+  reset_counts()
+  torch.cuda.reset_peak_memory_stats()
+  torch.cuda.synchronize()
+  start = time.time()
+  state = pinn_lib.train_bpinn(config, bpinn_dir, snapshot, device='cuda',
+                               history=history)
+  torch.cuda.synchronize()
+  total_s = time.time() - start
+  peak = torch.cuda.max_memory_allocated()
+  launches = dict(flow_counts(), ns_step_fused=k4.ns_step_fused.launches)
+  fired = collections.Counter(e for h in history for e in h['events'])
+  n_steps = len(history)
+  expected = {'correlation': levels * (n_steps + fired['eval']),
+              'correlation_df1': levels * n_steps,
+              'correlation_df2': levels * n_steps,
+              'ns_step_fused': 0}            # the rollout read from its file
+  moved = sum(not torch.equal(boot_params[n], v)
+              for n, v in state.params.items())
+  counts = {label: s.count for label, s in state.opt_state.items()}
+  final_step = state.step
+  snapshots = sorted(os.listdir(os.path.join(bpinn_dir, 'checkpoints')))
+  bpinn_snapshot = os.path.join(bpinn_dir, 'checkpoints', 'checkpoint_1')
+
+  # One steady step profiled, on the trained state.
+  model, _ = init_pinn(config, device='cuda')
+  tx = pinn_losses.get_pinn_optimizer(config, lr_mul_pres=0.05,
+                                      is_bpinn=True)
+  step_fn = bayes.get_bpinn_prelim_step_fn(config, model, tx, train=True)
+  batch, mask, _ = prelim_batch(config, seed)
+  g = torch.Generator(device='cuda').manual_seed(seed)
+  step_fn(state, mask, batch, g)
+  profile_out, _ = profiled('B-PINN train step (batch 64, f32)',
+                            lambda: step_fn(state, mask, batch, g))
+  del model, state
+
+  t.n_bpinn_iters = bpinn_steps + 2
+  resumed_history = []
+  resumed = pinn_lib.train_bpinn(config, bpinn_dir, snapshot, device='cuda',
+                                 history=resumed_history)
+  resumed_steps = [h['step'] for h in resumed_history]
+  resumed_final = resumed.step
+  del resumed
+
+  it = iter(get_dataset(config, device='cuda')[0])
+  next(it)
+  start = time.perf_counter()
+  for _ in range(5):
+    next(it)
+  batch_s = (time.perf_counter() - start) / 5
+
+  steady = [h['seconds'] for h in history[2:] if not h['events']]
+  step_s = float(np.mean(steady))
+  losses_ = [h['loss'] for h in history]
+  bs = t.batch_size
+  families = profile_out['families']
+  report = dict(
+      pinn_train_s=pinn_s, bootstrap_mu_exact=mu_exact,
+      bootstrap_rho_exact=rho_exact, steps=n_steps, events=dict(fired),
+      total_s=total_s, steady_step_s=step_s, samples_per_s=bs / step_s,
+      steady_steps_timed=len(steady), batch_assembly_s=batch_s,
+      first_step_s=history[0]['seconds'],
+      event_step_s={h['step']: h['seconds'] for h in history if h['events']},
+      losses=losses_, max_memory_allocated=peak, launches=launches,
+      expected_launches=expected, snapshots=snapshots, params_moved=moved,
+      leaves=len(boot_params), adam_counts=counts, final_step=final_step,
+      resumed_steps=resumed_steps, resumed_final_step=resumed_final,
+      profile=profile_out,
+      k3_device_ms=families.get('K3 correlation', (0, 0.0))[1],
+      k3_bwd_device_ms=families.get('K3 correlation backward', (0, 0.0))[1])
+  log(f'  pinn_lib.train (3 + 3 steps) {pinn_s:.1f} s; bootstrap from '
+      f'checkpoint_2: mu == its ema_params bit for bit {mu_exact}, rho == '
+      f'inv_softplus(delta |w|) {rho_exact}')
+  log(f'  train_bpinn: {n_steps} steps in {total_s:.2f} s (set-up '
+      f'included; events {dict(fired)}); steady step {step_s:.4f} s (mean '
+      f'of {len(steady)} event-free steps after the first two, '
+      f'synchronised): {bs / step_s:.1f} samples/s; first step '
+      f'{history[0]["seconds"]:.2f} s; of a step, the batch\'s assembly on '
+      f'the host {batch_s:.4f} s')
+  log(f'  losses: first {losses_[0]:.2f}, last {losses_[-1]:.2f}, all finite '
+      f'{bool(np.isfinite(losses_).all())}; peak memory {peak / 2**30:.2f} '
+      'GiB (torch.cuda.max_memory_allocated)')
+  log(f'  launches {launches} (expected {expected}); snapshots {snapshots}; '
+      f'mu and rho leaves moved {moved} of {len(boot_params)}; Adam counts '
+      f'{counts}; final step {final_step}; resumed {resumed_steps} to step '
+      f'{resumed_final}')
+  log(f'  profiled step: K3 {report["k3_device_ms"]:.3f} ms, B1 + B2 '
+      f'{report["k3_bwd_device_ms"]:.3f} ms of device time')
+  if not (mu_exact and rho_exact):
+    failures.append(f'B-PINN bootstrap: mu exact {mu_exact}, rho exact '
+                    f'{rho_exact}')
+  if not np.isfinite(losses_).all():
+    failures.append('B-PINN: a loss is not finite')
+  for name, n in expected.items():
+    if launches[name] != n:
+      failures.append(f'B-PINN {name}: {launches[name]} launches, expected '
+                      f'{n}')
+  if set(fired) != {'log', 'eval', 'preempt_ckpt', 'snapshot'}:
+    failures.append(f'B-PINN: events {dict(fired)}')
+  if snapshots != ['checkpoint_1']:
+    failures.append(f'B-PINN: snapshots {snapshots}')
+  if moved != len(boot_params):
+    failures.append(f'B-PINN: {moved} of {len(boot_params)} leaves moved')
+  if counts != {'flow': n_steps, 'pres': n_steps}:
+    failures.append(f'B-PINN: Adam counts {counts}, expected {n_steps}')
+  want_resumed = [bpinn_steps + 1, bpinn_steps + 2]
+  if resumed_steps != want_resumed or resumed_final != bpinn_steps + 3:
+    failures.append(f'B-PINN: resumed {resumed_steps} to '
+                    f'{resumed_final}; expected {want_resumed}')
+  return report, bpinn_snapshot, _pinn_parts(boot_params, 'mu'), failures
+
+
+def bpinn_ukf_phase(ckpt, workdir, cycles=3):
+  """``ukf_lib.run(ckptdir=<the B-PINN snapshot>)`` at full width for
+  ``cycles`` cycles: the posterior it filters with against the snapshot's
+  ``ema_params``, the belief, ``ukf.png`` and the launch counts.  Returns
+  (report, failures)."""
+  config = configs.get_config(BPINN_CONFIG)
+  saved = torch.load(ckpt, map_location='cuda', weights_only=True)
+  handed = []
+  real_kf = ukf_lib.PINN_KF
+
+  def spy(config, model, bparams):
+    handed.append(bparams)
+    return real_kf(config, model, bparams)
+
+  reset_counts()
+  ukf_lib.PINN_KF = spy
+  try:
+    mse = ukf_lib.run(config, workdir, n_steps=cycles, device='cuda',
+                      ckptdir=ckpt)
+  finally:
+    ukf_lib.PINN_KF = real_kf
+  launches = {'correlation': k3.correlation.launches,
+              'ns_step_fused': k4.ns_step_fused.launches}
+  levels = len(config.model.feature_nums)
+  expected = {'correlation': levels * cycles,
+              'ns_step_fused': cycles + max(cycles + 2, 64) - 1}
+  got = bayes.flatten_posterior(handed[0])
+  restored = got.keys() == saved['ema_params'].keys() and all(
+      torch.equal(got[k], v) for k, v in saved['ema_params'].items())
+  belief = np.load(os.path.join(workdir, 'ukf_belief.npz'))
+  diag = np.diagonal(belief['sqrt_cov'], axis1=-2, axis2=-1)
+  finite = bool(np.isfinite(belief['mean']).all()
+                and np.isfinite(belief['sqrt_cov']).all() and np.isfinite(mse))
+  with open(os.path.join(workdir, 'ukf.png'), 'rb') as fh:
+    png = fh.read(8) == PNG_SIGNATURE
+  report = dict(f_mse=mse, restored_is_ema=restored, finite=finite,
+                min_sqrt_cov_diag=float(diag.min()), png=png,
+                launches=launches, expected_launches=expected)
+  log(f'  ukf from the B-PINN snapshot, {cycles} cycles: posterior == its '
+      f'ema_params {restored}; f-MSE {mse:.4e}; finite {finite}, min '
+      f'sqrt-cov diagonal {diag.min():.3e}; ukf.png {png}; launches '
+      f'{launches} (expected {expected})')
+  failures = []
+  if not (restored and finite and diag.min() >= 0 and png
+          and launches == expected):
+    failures.append(f'ukf from the B-PINN snapshot: {report}')
+  return report, failures
+
+
+def simulator_phase(boot_mu, workdir, n_steps=100, frames=10):
+  """``simulator.run`` for ``n_steps`` at pinn_pde's 64x64 (K4 at batch
+  1), the launch counts set to 0 before and read after; the kernel
+  rollout against the plain rollout (``ns_step`` on the same fields) step
+  by step; ``simulate`` for ``frames`` frames with the bootstrapped PINN's
+  mu (K3 at batch 1).  Returns (report, failures)."""
+  config = configs.get_config(BPINN_CONFIG)
+  size = config.data.image_size
+  reset_counts()
+  mses = simulator.run(config, None, workdir, n_steps=n_steps, device='cuda')
+  launches = {'ns_step_fused': k4.ns_step_fused.launches}
+  expected = {'ns_step_fused': max(n_steps + 2, 64) - 1 + n_steps}
+  data = ns_rollout(3, size, size, config.seed, device='cuda')
+  kernel, _, _ = simulator.step_rollout(data, t_range=(0, n_steps))
+  fields = [data[0, c][None] for c in range(2, 6)]
+  gaps = []
+  with torch.no_grad():
+    for i in range(n_steps):
+      fields = list(k4.ns_step(*fields, simulator.DT, simulator.DX))
+      gaps.append(rel_err(kernel[i], fields[0])[1])
+  model, _ = init_pinn(config, device='cuda')
+  reset_counts()
+  result, vel = simulator.simulate(model, boot_mu, config, data,
+                                   t_range=(0, frames))
+  corr = k3.correlation.launches
+  finite = all(bool(torch.isfinite(f).all()) for f in result + vel)
+  report = dict(mses_every_10=mses[::10], final_mse=mses[-1],
+                launches=launches, expected_launches=expected,
+                rollout_gap_every_10=gaps[::10], first_step_gap=gaps[0],
+                simulate_frames=len(result), simulate_finite=finite,
+                simulate_k3_launches=corr)
+  log(f'  simulator.run {n_steps} steps at {size}x{size}: MSE vs the '
+      f'rollout every 10 steps {[f"{m:.3e}" for m in mses[::10]]}; '
+      f'launches {launches} (expected {expected})')
+  log(f'  kernel vs plain rollout, rel gap every 10 steps '
+      f'{[f"{e:.2e}" for e in gaps[::10]]} (first step {gaps[0]:.2e}, '
+      f'limit {TOL[torch.float32]})')
+  log(f'  simulate {frames} frames with the bootstrapped mu: finite '
+      f'{finite}, K3 launches {corr} (batch 1)')
+  failures = []
+  if not (gaps[0] <= TOL[torch.float32] and launches == expected
+          and finite and np.isfinite(mses).all()
+          and corr == frames * len(config.model.feature_nums)):
+    failures.append(f'simulator: {report}')
+  return report, failures
+
+
+def cli_phase(ckpt, workdir):
+  """``python -m b_pinn_kalman_filter_tpu_torch --mode ukf --ckptdir
+  <ckpt>`` on the port's pinn_pde config, as a subprocess.  Returns
+  (report, failures)."""
+  root = os.path.dirname(os.path.abspath(__file__))
+  cmd = [sys.executable, '-m', 'b_pinn_kalman_filter_tpu_torch', '--config',
+         os.path.join(root, 'b_pinn_kalman_filter_tpu_torch', 'configs',
+                      'pinn', 'pinn_pde.py'),
+         '--workdir', workdir, '--mode', 'ukf', '--ckptdir', ckpt]
+  start = time.time()
+  proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                        timeout=600)
+  seconds = time.time() - start
+  mse_path = os.path.join(workdir, 'ukf_mse.txt')
+  mse = float(open(mse_path).read()) if os.path.exists(mse_path) else None
+  png_path = os.path.join(workdir, 'ukf.png')
+  png = os.path.exists(png_path) and open(png_path, 'rb').read(8) == (
+      PNG_SIGNATURE)
+  report = dict(returncode=proc.returncode, seconds=seconds, f_mse=mse,
+                png=png)
+  log(f'  {" ".join(cmd[1:4])} --mode ukf --ckptdir <B-PINN snapshot>: exit '
+      f'{proc.returncode} in {seconds:.1f} s, ukf_mse.txt {mse}, ukf.png '
+      f'{png}')
+  failures = []
+  if proc.returncode != 0 or mse is None or not np.isfinite(mse) or not png:
+    failures.append(f'CLI ukf: {report}; stderr {proc.stderr[-2000:]}')
+  return report, failures
+
+
+def bpinn_phase(bpinn_steps, seed):
+  """The B-PINN phase: the full-width gradient check, then the pipeline
+  (PINN, B-PINN, ukf from its snapshot, the simulator, the CLI) on a
+  rollout made anew in an empty data directory.  Returns (report,
+  failures)."""
+  report, failures = {}, []
+  log('[B-PINN: one step\'s terms and gradients in mu and rho, kernel path '
+      'vs plain path, batch 64, f32]')
+  report['grads'], f = bpinn_grad_phase(seed)
+  failures += f
+  data_dir = os.environ.get('BPKF_DATA_DIR')
+  with tempfile.TemporaryDirectory() as tmp:
+    os.environ['BPKF_DATA_DIR'] = os.path.join(tmp, 'data')
+    try:
+      log(f'[B-PINN: pinn_lib.train, then train_bpinn from its snapshot, '
+          f'steps 0..{bpinn_steps}; then a resume]')
+      report['train'], ckpt, boot_mu, f = bpinn_pipeline(bpinn_steps,
+                                                         seed, tmp)
+      failures += f
+      log('[B-PINN: ukf_lib.run from the B-PINN snapshot]')
+      report['ukf'], f = bpinn_ukf_phase(ckpt, os.path.join(tmp, 'ukf'))
+      failures += f
+      log('[B-PINN: simulator.run and simulate]')
+      report['simulator'], f = simulator_phase(boot_mu,
+                                               os.path.join(tmp, 'sim'))
+      failures += f
+      log('[B-PINN: the CLI, --mode ukf from the B-PINN snapshot]')
+      report['cli'], f = cli_phase(ckpt, os.path.join(tmp, 'cli'))
+      failures += f
+    finally:
+      if data_dir is None:
+        os.environ.pop('BPKF_DATA_DIR', None)
+      else:
+        os.environ['BPKF_DATA_DIR'] = data_dir
+  return report, failures
+
+
 def reset_counts():
   """Every kernel's launch counts to 0."""
   for kernel in (k1.conv3x3, k2.groupnorm_act, k3.correlation,
@@ -1770,6 +2220,8 @@ def main():
   parser.add_argument('--pinn-steps', type=int, default=20,
                       help='PINN phase-2 steps after its first (default '
                       '20; even)')
+  parser.add_argument('--bpinn-steps', type=int, default=20,
+                      help='B-PINN steps after step 0 (default 20; even)')
   parser.add_argument('--seed', type=int, default=0)
   parser.add_argument('--out', default=None,
                       help='directory for chip_smoke.json (per-shape details)')
@@ -1949,6 +2401,20 @@ def main():
   failures += f15
   step_launches = report['pinn_grads']['step_launches']
 
+  report['bpinn'], f16 = bpinn_phase(args.bpinn_steps, args.seed)
+  failures += f16
+  bpinn_train = report['bpinn']['train']
+  bpinn_step = report['bpinn']['grads']['step_launches']
+  # The bounds of K3 and of B1 + B2 a step at the five level shapes at
+  # batch 64: once a level a B-PINN (and prelim) step, 30 times a phase-2
+  # step.
+  size = config.data.image_size
+  k3_step_bound = sum(corr_bound((prelim_batch_size, size >> (i + 1),
+                                  size >> (i + 1), c))[0]
+                      for i, c in enumerate(config.model.feature_nums))
+  bwd_step_bound = bwd_total['bound_ms']
+  per_level = step_launches['correlation'] // len(config.model.feature_nums)
+
   def entry(name, source, replaces, launches, total, yardstick=False):
     """One kernel's row of the table; a yardstick's numbers are its
     ``prev_*`` ones from the same rows, its launches those of the main
@@ -1981,7 +2447,12 @@ def main():
                  ukf_launches['correlation'], corr),
            phase2_launches=pinn_launches['correlation'],
            phase2_step_launches=step_launches['correlation'],
-           phase2_step_device_ms=report['pinn']['k3_device_ms']),
+           phase2_step_device_ms=report['pinn']['k3_device_ms'],
+           phase2_step_bound_ms=per_level * k3_step_bound,
+           bpinn_launches=bpinn_train['launches']['correlation'],
+           bpinn_step_launches=bpinn_step['correlation'],
+           bpinn_step_device_ms=bpinn_train['k3_device_ms'],
+           bpinn_step_bound_ms=k3_step_bound),
       dict(entry('correlation_bwd', 'correlation_bwd.cu',
                  'correlation_pallas.py:42',
                  prelim_launches['correlation_df1']
@@ -1990,7 +2461,14 @@ def main():
            + pinn_launches['correlation_df2'],
            phase2_step_launches=step_launches['correlation_df1']
            + step_launches['correlation_df2'],
-           phase2_step_device_ms=report['pinn']['k3_bwd_device_ms']),
+           phase2_step_device_ms=report['pinn']['k3_bwd_device_ms'],
+           phase2_step_bound_ms=per_level * bwd_step_bound,
+           bpinn_launches=bpinn_train['launches']['correlation_df1']
+           + bpinn_train['launches']['correlation_df2'],
+           bpinn_step_launches=bpinn_step['correlation_df1']
+           + bpinn_step['correlation_df2'],
+           bpinn_step_device_ms=bpinn_train['k3_bwd_device_ms'],
+           bpinn_step_bound_ms=bwd_step_bound),
       entry('correlation_tile', 'correlation_tile.cu',
             'correlation_pallas.py:42', 0, corr, yardstick=True),
       entry('ns_step_fused', 'ns_step.cu', 'ns_step_pallas.py:63',
@@ -2012,9 +2490,10 @@ def main():
       f'per prelim step (f32, batch {prelim_batch_size}), each yardstick '
       '(the first card design) at the same shapes; launches from the sampler '
       '(K1, K2), the train run (K1 data gradient), the ukf run (K3, K4) and '
-      'the prelim run (K3 backward); phase2_* keys: K3 and K3 backward '
-      'launches over the phase-2 train run and a step, and their device ms '
-      'in the profiled phase-2 step')
+      'the prelim run (K3 backward); phase2_* and bpinn_* keys: K3 and K3 '
+      'backward launches over the phase-2 and B-PINN train runs and a step, '
+      'their device ms in the profiled step and their bound a step (batch '
+      f'{prelim_batch_size})')
   if failures:
     for failure in failures:
       print(f'FAILED: {failure}', file=sys.stderr)

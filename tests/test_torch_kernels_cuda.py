@@ -506,6 +506,62 @@ def test_pinn_residual_gradient_kernel_path_matches_plain_path(card):
           TOL[torch.float32] * top), name
 
 
+def test_bpinn_step_launches_and_data_gradient_match_plain_path(card):
+  """One B-PINN step at pinn_pde's full width (batch 2) on a MOPED
+  posterior: a train step launches K3, B1 and B2 once a level, an eval
+  step K3 once a level; the gradient in mu and rho of the data MSEs alone
+  (the KL terms, far larger, would hide it), cost volumes on the kernels
+  against their plain versions, every leaf within 1e-4 of the largest
+  leaf's."""
+  from b_pinn_kalman_filter_tpu_torch.pinn import bayes
+  from b_pinn_kalman_filter_tpu_torch.pinn import losses as pinn_losses
+  from b_pinn_kalman_filter_tpu_torch.train.state import create_train_state
+  config, kernel_model = _prelim_setup(True)
+  _, plain_model = _prelim_setup(False)
+  config.training.batch_size = B = 2
+  S = config.data.image_size
+  batch = (torch.rand((B, S, S, 1), generator=card, device='cuda'),
+           torch.rand((B, S, S, 1), generator=card, device='cuda'),
+           torch.rand((B, S, S, 1), generator=card, device='cuda'),
+           torch.rand((B, S, S, 1), generator=card, device='cuda'),
+           torch.arange(1, B + 1, device='cuda', dtype=torch.float32),
+           torch.randn((B, S, S, 3), generator=card, device='cuda'))
+  mask = (torch.rand((S, S, 1), generator=card, device='cuda') < 0.9).float()
+  noise = tuple(torch.randn((B, S, S, 1), generator=card, device='cuda')
+                for _ in range(2))
+  posterior = bayes.flatten_posterior(bayes.make_bpinn_params(
+      {key: {n: p.detach() for n, p in getattr(kernel_model, key)
+             .named_parameters()} for key in ('flownet', 'pressurenet')},
+      config))
+  eps = bayes.sample_eps(card, bayes.nest_posterior(posterior))
+  kernels = (k3.correlation, k3.correlation_df1, k3.correlation_df2)
+  levels = len(config.model.feature_nums)
+  grads = []
+  for model in (kernel_model, plain_model):
+    params = {k: v.clone().requires_grad_() for k, v in posterior.items()}
+    *_, terms = bayes.get_bpinn_loss_fn(config, model)(
+        params, mask, batch, noise=noise, eps=eps)
+    grads.append(dict(zip(params, torch.autograd.grad(
+        terms['flow_mse'] + terms['pres_mse'], list(params.values()),
+        allow_unused=True, materialize_grads=True))))
+  top = max(float(v.abs().max()) for v in grads[1].values())
+  for name, want in grads[1].items():
+    assert float((grads[0][name] - want).abs().max()) <= (
+        TOL[torch.float32] * top), name
+
+  tx = pinn_losses.get_pinn_optimizer(config, lr_mul_pres=0.05,
+                                      is_bpinn=True)
+  state = create_train_state(
+      {k: v.clone() for k, v in posterior.items()}, tx, config.model.ema_rate)
+  for train, want in ((True, [levels] * 3), (False, [levels, 0, 0])):
+    step = bayes.get_bpinn_prelim_step_fn(config, kernel_model, tx, train)
+    for k in kernels:
+      k.launches = 0
+    step(state, mask, batch, card)
+    assert [k.launches for k in kernels] == want, train
+  assert state.step == 1
+
+
 def _ns_fields(card, shape):
   d = torch.rand(shape, generator=card, device='cuda')
   u = 0.2 * torch.randn(shape, generator=card, device='cuda')
