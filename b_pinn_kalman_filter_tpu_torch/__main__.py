@@ -10,9 +10,9 @@
 the config has; its value is read as a Python literal where it is one
 (``5``, ``1e-3``, ``(4, 8)``), else kept as the string.  ``--device``
 (default ``cuda``) is the entry points' device: ``cpu`` runs them on the
-CPU.  Modes ``train``, ``train_pinn``, ``train_bpinn``, ``simulate`` and
-``ukf`` run the port's entry points; the training modes also log to
-``<workdir>/stdout.txt``.  ``sample``, ``eval`` and ``inverse`` are not
+CPU.  Modes ``train``, ``train_pinn``, ``train_bpinn``, ``simulate``,
+``ukf`` and ``inverse`` run the port's entry points; the training modes
+also log to ``<workdir>/stdout.txt``.  ``sample`` and ``eval`` are not
 ported yet and raise ``NotImplementedError``.
 """
 
@@ -29,7 +29,7 @@ from typing import List, Optional, Sequence
 MODES = ('train', 'sample', 'eval', 'inverse', 'train_pinn', 'train_bpinn',
          'simulate', 'ukf')
 # The ROADMAP.md items of the modes whose modules are not ported yet.
-UNPORTED = {'sample': 'A.7', 'eval': 'A.7', 'inverse': 'A.5'}
+UNPORTED = {'sample': 'A.7', 'eval': 'A.7'}
 OVERRIDE = '--config.'
 
 
@@ -113,6 +113,11 @@ def run(args, config) -> None:
     from b_pinn_kalman_filter_tpu_torch.kalman import ukf_lib
     ukf_lib.run(config, args.workdir, device=args.device,
                 ckptdir=args.ckptdir)
+    return
+  if args.mode == 'inverse':
+    from b_pinn_kalman_filter_tpu_torch.inverse import inverse_lib
+    inverse_lib.inverse(config, args.ckptdir, args.workdir,
+                        device=args.device)
     return
   handler = setup_logging(args.workdir)
   try:

@@ -4,7 +4,8 @@ Usage:
     from b_pinn_kalman_filter_tpu_torch import configs
     cfg = configs.get_config("vp/cifar10_ddpmpp_continuous")
 
-Only the configs of the ported path are here so far.
+The configs of the ported paths: the flagship, ``pinn/pinn_pde``, and
+``vp/nc_ddpmpp`` with its three ``inverse/`` configs.
 """
 
 import importlib

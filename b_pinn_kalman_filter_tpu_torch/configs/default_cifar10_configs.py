@@ -101,3 +101,14 @@ def add_execution_defaults(config: ConfigDict) -> ConfigDict:
     config.eval.num_ref_images = 2048
     config.eval.inception_random_init = False
   return config
+
+
+def add_inverse_extensions(inverse: ConfigDict) -> ConfigDict:
+  """The solver keys of an ``inverse`` block (JAX
+  ``add_inverse_extensions``): the ``fixed`` solver's steps and the
+  guided DPM-Solver++'s steps, order and time grid."""
+  inverse.fixed_steps = 5000
+  inverse.dpm_steps = 50
+  inverse.dpm_order = 2
+  inverse.dpm_skip = 'logsnr'
+  return inverse

@@ -6,7 +6,7 @@ Counterpart of the JAX package's ``core/losses.py``: ``get_optimizer``
 with optax's semantics), ``MultiTransform`` (optax's ``multi_transform``
 over such optimizers), ``get_sde_loss_fn`` and ``get_step_fn``.  The
 SMLD and DDPM losses (``continuous=False``) are not ported yet
-(ROADMAP.md A.10).
+(ROADMAP.md A.11).
 
 Randomness comes from a ``torch.Generator``: the loss draws t, then z,
 then the dropout masks from it.  ``noise=(t, z)`` replaces the first two
@@ -194,7 +194,7 @@ def get_step_fn(sde, model, tx: Optimizer, train: bool,
   """
   if not continuous:
     raise NotImplementedError(
-        'the SMLD and DDPM losses are not ported yet: ROADMAP.md A.10')
+        'the SMLD and DDPM losses are not ported yet: ROADMAP.md A.11')
   loss_fn = get_sde_loss_fn(sde, model, train, reduce_mean=reduce_mean,
                             continuous=True,
                             likelihood_weighting=likelihood_weighting)

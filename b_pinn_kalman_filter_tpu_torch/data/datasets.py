@@ -2,13 +2,15 @@
 paths, and the inpainting masks.
 
 The port's own copy of the parts of the JAX package's ``data/datasets.py``
-that training the flagship and the PINN read: ``get_dataset`` (its CIFAR10
-and PDE branches), ``NumpyLoader`` (epoch reshuffles, full batches), the
+that training the flagship and the PINN and the inverse suite read:
+``get_dataset`` (its CIFAR10, PDE and NC branches), ``NumpyLoader`` (epoch reshuffles, full batches), the
 native reader of the ``cifar-10-batches-py`` pickles, and the synthetic
 stand-in, ``SyntheticImages`` over ``smooth_field``, which ``get_dataset``
 returns when no CIFAR-10 files are present (the same seed gives the same
 bits as the JAX package); ``PDEDataset`` over a synthetic Navier-Stokes
-rollout; ``MaskIterator`` with the MNIST idx reader.  Left out: the
+rollout; ``NCDataset`` over the ocean-temperature file, read by
+:func:`load_netcdf`, or its synthetic stand-in; ``MaskIterator`` with the
+MNIST idx reader.  Left out: the
 ``PrefetchLoader`` thread that overlaps batch assembly with the device
 step there (the port's train loops fetch each batch in turn), the thread
 pool of ``NumpyLoader(num_workers>1)`` (which gives the same batches), the
@@ -148,6 +150,79 @@ def random_crop(rng: np.random.Generator, img: np.ndarray,
   i = int(rng.integers(0, h - size + 1))
   j = int(rng.integers(0, w - size + 1))
   return img[..., i:i + size, j:j + size]
+
+
+class NCDataset:
+  """Ocean-temperature frames ``data`` (T, D, H, W): item ``idx`` is the
+  depth-0 frame below ``land_cut`` rows, randomly cropped to
+  ``image_size`` from the seed ``seed * 1_000_003 + idx``, HWC float32,
+  with label 0.  The train split is the first 80% of the frames, the test
+  split the last 20%."""
+
+  def __init__(self, data: np.ndarray, image_size: int, split: str = 'train',
+               land_cut: int = 0, seed: int = 0):
+    self.data = data
+    self.len = len(data)
+    self.split = split
+    self.land_cut = land_cut
+    self.image_size = image_size
+    self.seed = seed
+
+  def __len__(self):
+    return (int(self.len * 0.8) if self.split == 'train'
+            else int(self.len * 0.2))
+
+  def __getitem__(self, idx):
+    base = idx if self.split == 'train' else int(self.len * 0.8) + idx
+    rng = np.random.default_rng(self.seed * 1_000_003 + idx)
+    sample = self.data[base, 0, self.land_cut:]
+    sample = random_crop(rng, sample[None], self.image_size)[0]
+    return sample[..., None].astype(np.float32), 0
+
+
+def load_netcdf(path: str, key: str) -> Optional[np.ndarray]:
+  """Variable ``key`` of the netCDF file at ``path``, or None: read with
+  netCDF4 where it is installed, else ``scipy.io.netcdf_file`` (classic
+  NetCDF-3), else from a sibling ``<path>.npz`` holding the same
+  variable name; the JAX package's reader order."""
+  if os.path.exists(path):
+    try:
+      from netCDF4 import Dataset as NetCDF
+      return np.asarray(NetCDF(path)[key])
+    except Exception:
+      pass
+    try:
+      from scipy.io import netcdf_file
+      with netcdf_file(path, 'r', mmap=False) as ds:
+        return np.asarray(ds.variables[key][:], np.float32)
+    except Exception:
+      pass
+  npz = path + '.npz'
+  if os.path.exists(npz):
+    try:
+      return np.asarray(np.load(npz)[key], np.float32)
+    except Exception:
+      return None
+  return None
+
+
+def nc_data(config) -> np.ndarray:
+  """The NC branch's frames (T, D, H, W): ``data.key`` of
+  ``bsose_i122_{data.date_range}_{data.category}.nc`` at the simulation
+  archive's path, else under :func:`data_dir`, else the synthetic
+  stand-in, ``smooth_field`` of shape (512, 1, 256 + ``data.land_cut``,
+  256) from ``config.seed``, as the JAX package makes it."""
+  path = (f'/data1/DATA_PUBLIC/Southern_Ocean/'
+          f'bsose_i122_{config.data.date_range}_{config.data.category}.nc')
+  data = load_netcdf(path, config.data.key)
+  if data is None:
+    data = load_netcdf(os.path.join(data_dir(), os.path.basename(path)),
+                       config.data.key)
+  if data is None:
+    rng = np.random.default_rng(config.seed)
+    data = smooth_field(rng, (512, 1, 256 + config.data.land_cut, 256), 8)
+    data = data.astype(np.float32)
+  return data
 
 
 class PDEDataset:
@@ -321,6 +396,9 @@ def get_dataset(config, device=None):
   stepped on ``device``, default ``cuda``; :func:`cached_ns_rollout`),
   ``trim = data.time_trim``, the test split's crops from ``config.seed +
   1``.
+
+  NC, NC_P: ``NCDataset`` over :func:`nc_data` (``data.land_cut``), the
+  test split's crops from ``config.seed + 1``.
   """
   batch_size = config.training.batch_size
   size, channels = config.data.image_size, config.data.num_channels
@@ -336,9 +414,14 @@ def get_dataset(config, device=None):
                              config.seed, device=device)
     train_ds = PDEDataset(data, size, 'train', trim, config.seed)
     test_ds = PDEDataset(data, size, 'test', trim, config.seed + 1)
+  elif config.data.dataset in ('NC', 'NC_P'):
+    data = nc_data(config)
+    cut = config.data.land_cut
+    train_ds = NCDataset(data, size, 'train', cut, config.seed)
+    test_ds = NCDataset(data, size, 'test', cut, config.seed + 1)
   else:
     raise NotImplementedError(
-        f'dataset {config.data.dataset} is not ported yet: ROADMAP.md A.5')
+        f'dataset {config.data.dataset} is not ported yet: ROADMAP.md A.10')
   train_loader = NumpyLoader(train_ds, batch_size, shuffle=True,
                              seed=config.seed)
   test_loader = NumpyLoader(test_ds, batch_size, shuffle=False,

@@ -2,7 +2,8 @@
 
 The port's layers keep the flax names and layouts (conv ``kernel`` HWIO,
 ``Dense`` ``kernel`` (in, out), ``NIN`` ``W`` (in, out), GroupNorm
-``scale``/``bias``), so each flax leaf at path ``a/b/c`` is the parameter
+``scale``/``bias``; the ``MLP``'s ``Dense_0``, ``Dense_1``, ...), so each
+flax leaf at path ``a/b/c`` is the parameter
 ``a.b.c`` of the torch module, copied as it is.  Every function here
 raises ``ValueError`` on a leaf that names no parameter, on a parameter
 that no leaf sets, and on a shape that differs.

@@ -1,4 +1,4 @@
-"""DDPM U-Net score network in PyTorch.
+"""DDPM U-Net score network, and the flat ``MLP`` score model, in PyTorch.
 
 Counterpart of the JAX package's ``models/ddpm.py`` ``DDPM``, with the same
 layer order and the flax child names (``Dense_0``, ``Conv3x3_0``,
@@ -159,3 +159,33 @@ class DDPM(nn.Module):
       used_sigmas = self.sigmas[labels.long()]
       h = h / used_sigmas[:, None, None, None]
     return h
+
+
+@registry.register_model(name='mlp')
+class MLP(nn.Module):
+  """Flat MLP score model ('mlp'): Dense layers of widths ``L * b`` for b
+  in ``shape[1:]`` (L = H * W * C) with ReLU between, the time label
+  unused.  ``Dense_0``, ``Dense_1``, ... as flax names them, computing as
+  flax's ``nn.Dense`` does in the input's dtype promoted with the f32
+  parameters' (f32, or f64 for f64 inputs)."""
+
+  def __init__(self, config, kernels: bool = True,
+               shape=(1, 3, 3, 1)):
+    super().__init__()
+    del kernels      # no kernel site
+    self.config = config
+    c, size = config.data.num_channels, config.data.image_size
+    self.image_shape = (size, size, c)
+    L = c * size * size
+    self.dense = [layers.Dense(L * a, L * b, dtype=None)
+                  for a, b in zip(shape[:-1], shape[1:])]
+    for i, dense in enumerate(self.dense):
+      self.add_module(f'Dense_{i}', dense)
+
+  def forward(self, x, labels, train=True, generator=None):
+    h = x.reshape(x.shape[0], -1)
+    for i, dense in enumerate(self.dense):
+      h = dense(h)
+      if i != len(self.dense) - 1:
+        h = torch.relu(h)
+    return h.reshape((-1,) + self.image_shape)

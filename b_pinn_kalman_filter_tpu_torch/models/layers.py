@@ -105,18 +105,21 @@ def init_params(model: nn.Module, generator: torch.Generator) -> None:
 # ---------------------------------------------------------------------------
 
 class Dense(nn.Module):
-  """flax ``nn.Dense``: ``kernel`` (in, out), ``bias`` (out,)."""
+  """flax ``nn.Dense``: ``kernel`` (in, out), ``bias`` (out,); computes in
+  ``dtype``, or with ``dtype=None`` in the input's dtype promoted with the
+  f32 parameters' (flax's default)."""
 
   def __init__(self, in_features: int, out_features: int,
-               dtype: torch.dtype = torch.float32):
+               dtype: Optional[torch.dtype] = torch.float32):
     super().__init__()
     self.dtype = dtype
     _param(self, 'kernel', (in_features, out_features), default_init())
     _param(self, 'bias', (out_features,), zeros_init)
 
   def forward(self, x):
-    return F.linear(x.to(self.dtype), self.kernel.to(self.dtype).t(),
-                    self.bias.to(self.dtype))
+    dtype = self.dtype or torch.promote_types(x.dtype, torch.float32)
+    return F.linear(x.to(dtype), self.kernel.to(dtype).t(),
+                    self.bias.to(dtype))
 
 
 class Conv(nn.Module):

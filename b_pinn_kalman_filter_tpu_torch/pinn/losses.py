@@ -3,8 +3,9 @@ and phase 2, the step with the Navier–Stokes residual.
 
 Counterpart of the JAX package's ``pinn/losses.py`` ``get_pinn_optimizer``,
 ``_mask_and_noise``, ``_gt_flow_pyramid``, ``get_prelim_step_fn`` and
-``get_pinn_step_fn`` (the B-PINN KL terms are ROADMAP.md A.3, the
-microbatched residual gradient of ``tpu.pinn_microbatch`` A.14).
+``get_pinn_step_fn`` (the B-PINN step is ``pinn/bayes.py``'s; the
+microbatched residual gradient of ``tpu.pinn_microbatch`` is ROADMAP.md
+A.14).
 
 The flow loss reaches only the FlowNet's parameters and the pressure loss
 only the PressureNet's (the PressureNet reads the ground-truth flow

@@ -562,6 +562,98 @@ def test_bpinn_step_launches_and_data_gradient_match_plain_path(card):
   assert state.step == 1
 
 
+# The inverse suite's NC U-Net (inverse/nc_ddpmpp_inpaint_dps: 64x64x1,
+# batch 16): K1 sites at every level, K1's TMA box (1, 1, 64) at 64x64,
+# and K2's re-read branch (on_chip False) at 64x64 in f32 and bf16.
+NC_CONV_SITES = [(16, 64, 64, 128, 128), (16, 64, 64, 384, 128),
+                 (16, 64, 64, 256, 256), (16, 32, 32, 512, 256),
+                 (16, 16, 16, 512, 256), (16, 8, 8, 256, 256)]
+NC_NORM_SITES = [(16, 64, 64, 128), (16, 64, 64, 384), (16, 32, 32, 512),
+                 (16, 8, 8, 512)]
+
+
+@pytest.mark.parametrize('dtype', DTYPES)
+@pytest.mark.parametrize('shape', NC_CONV_SITES)
+def test_conv3x3_nc_sites_forward_and_data_gradient(card, shape, dtype):
+  """K1 and its data gradient at the NC U-Net's sites against the plain
+  version (at 64x64 the wgmma kernel's box is one 64-pixel row)."""
+  x, w, b = _conv_inputs(card, shape, dtype)
+  B, H, W, cin, cout = shape
+  if dtype == torch.bfloat16 and W == 64:
+    assert k1.wgmma_plan(B, H, W, cin, cout)['box'] == (1, 1, 64)
+  dy = torch.randn((B, H, W, cout), generator=card, device='cuda').to(dtype)
+  x = x.requires_grad_()
+  y = k1.conv3x3(x, w, b)
+  dx, = torch.autograd.grad(y, x, dy)
+  plain_x = x.detach().requires_grad_()
+  want_y = k1.conv3x3_plain(plain_x, w, b)
+  want_dx, = torch.autograd.grad(want_y, plain_x, dy)
+  assert _rel(y.detach(), want_y.detach()) <= TOL[dtype]
+  assert _rel(dx, want_dx) <= TOL[dtype]
+
+
+@pytest.mark.parametrize('dtype', DTYPES)
+@pytest.mark.parametrize('shape', NC_NORM_SITES)
+def test_groupnorm_act_nc_sites(card, shape, dtype):
+  """K2 at the NC sites, the re-read branch where the plan says so (64x64
+  at 128 channels in f32 above all, 256 KiB a block of the cluster)."""
+  H, W, C = shape[1:]
+  plan = k2.groupnorm_plan(H, W, C, 32, torch.tensor([], dtype=dtype)
+                           .element_size())
+  if (H, C, dtype) == (64, 128, torch.float32):
+    assert not plan['on_chip']
+  x = (torch.randn(shape, generator=card, device='cuda') * 2 + 3).to(dtype)
+  scale = 1 + 0.1 * torch.randn((C,), generator=card, device='cuda')
+  bias = 0.1 * torch.randn((C,), generator=card, device='cuda')
+  with torch.inference_mode():
+    got = k2.groupnorm_act(x, scale, bias, 32, 'silu')
+    want = k2.groupnorm_act_plain(x, scale, bias, 32, 'silu')
+  assert _rel(got, want) <= TOL[dtype]
+
+
+def test_dps_guided_evaluation_kernel_path_matches_plain_path(card):
+  """One DPS guided evaluation through the NC U-Net cut to 2 res blocks
+  at batch 2 (64x64, bf16, every parameter randomised): the score and
+  score_cond within bf16's limit of the plain path, and the launches an
+  evaluation one K1 forward and one K1 data gradient a K1 site, one K2 a
+  K2 site."""
+  from b_pinn_kalman_filter_tpu_torch import configs
+  from b_pinn_kalman_filter_tpu_torch.core import sde as sde_lib
+  from b_pinn_kalman_filter_tpu_torch.inverse import conditional_sampling
+  from b_pinn_kalman_filter_tpu_torch.inverse import operators
+  from b_pinn_kalman_filter_tpu_torch.models import registry
+  out = {}
+  for kernels in (True, False):
+    config = configs.get_config('inverse/nc_ddpmpp_inpaint_dps')
+    config.model.num_res_blocks = 2
+    model = registry.create_model(config, device='cuda', kernels=kernels)
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+      for p in model.parameters():
+        p.copy_(torch.randn(p.shape, generator=g) / (
+            p[..., 0].numel() ** 0.5 if p.ndim >= 2 else 10.0))
+    sde, _ = sde_lib.get_sde(config)
+    op = operators.InpaintOperator(mask=(torch.rand(
+        (64, 64, 1), generator=g) > 0.5).float(), device='cuda')
+    x = torch.randn((2, 64, 64, 1), generator=g).cuda()
+    y = op(torch.rand((2, 64, 64, 1), generator=g).cuda(), keep_shape=False)
+    score_fn = registry.get_score_fn(sde, model, continuous=True, params={
+        k: v.detach() for k, v in model.named_parameters()})
+    guidance = conditional_sampling.dps_guidance(sde, score_fn, y, op, 0.1)
+    k1.conv3x3.launches_by_use.update(forward=0, data_grad=0)
+    k2.groupnorm_act.launches = 0
+    out[kernels] = guidance(x, torch.full((2,), 0.5, device='cuda'))
+    counts = (dict(k1.conv3x3.launches_by_use), k2.groupnorm_act.launches)
+    if kernels:
+      assert counts[0]['forward'] == counts[0]['data_grad'] > 0
+      assert counts[1] > 0
+    else:
+      assert counts == ({'forward': 0, 'data_grad': 0}, 0)
+  for got, want in zip(out[True], out[False]):
+    assert torch.isfinite(got).all()
+    assert _rel(got, want) <= TOL[torch.bfloat16]
+
+
 def _ns_fields(card, shape):
   d = torch.rand(shape, generator=card, device='cuda')
   u = 0.2 * torch.randn(shape, generator=card, device='cuda')

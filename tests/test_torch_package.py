@@ -28,6 +28,7 @@ if not torch.cuda.is_available():
   from b_pinn_kalman_filter_tpu_torch.train import run_lib
   from b_pinn_kalman_filter_tpu_torch.kalman import ukf_lib
   from b_pinn_kalman_filter_tpu_torch.pinn import pinn_lib
+  from b_pinn_kalman_filter_tpu_torch.inverse import inverse_lib
   from b_pinn_kalman_filter_tpu_torch import configs
   for call in (get_device,
                lambda: run_lib.sample(configs.get_config(
@@ -39,7 +40,10 @@ if not torch.cuda.is_available():
                lambda: pinn_lib.train_prelim(configs.get_config(
                    'pinn/pinn_pde'), 'workdir-never-made'),
                lambda: pinn_lib.train(configs.get_config(
-                   'pinn/pinn_pde'), 'workdir-never-made')):
+                   'pinn/pinn_pde'), 'workdir-never-made'),
+               lambda: inverse_lib.inverse(configs.get_config(
+                   'inverse/nc_ddpmpp_inpaint_dps'), None,
+                   'workdir-never-made')):
     try:
       call()
     except RuntimeError as e:
@@ -56,7 +60,7 @@ def test_port_imports_no_jax_and_defaults_to_the_card():
   """In a fresh interpreter: import every port module and chip_smoke.py,
   then check sys.modules, and without a card that the default device,
   run_lib.sample, run_lib.train, ukf_lib.run, pinn_lib.train_prelim,
-  pinn_lib.train and chip_smoke.main() refuse."""
+  pinn_lib.train, inverse_lib.inverse and chip_smoke.main() refuse."""
   env = dict(os.environ, PYTHONPATH=ROOT)
   out = subprocess.run([sys.executable, '-c', _IMPORT_ALL], cwd=ROOT,
                        env=env, capture_output=True, text=True, timeout=240)
@@ -80,6 +84,13 @@ def test_config_has_the_jax_keys_and_values():
 
 def test_pinn_config_has_the_jax_keys_and_values():
   _check_config_keys('pinn/pinn_pde')
+
+
+@pytest.mark.parametrize('name', [
+    'vp/nc_ddpmpp', 'inverse/nc_ddpmpp_inpaint',
+    'inverse/nc_ddpmpp_inpaint_dps', 'inverse/nc_ddpmpp_rndinpaint_dps'])
+def test_nc_configs_have_the_jax_keys_and_values(name):
+  _check_config_keys(name)
 
 
 def _check_config_keys(name):

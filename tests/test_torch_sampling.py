@@ -15,6 +15,7 @@ from b_pinn_kalman_filter_tpu_torch.core import sampling
 from b_pinn_kalman_filter_tpu_torch.core import sde as sde_lib
 from b_pinn_kalman_filter_tpu_torch.data import scalers
 from b_pinn_kalman_filter_tpu_torch.models import ddpm as torch_ddpm
+from b_pinn_kalman_filter_tpu_torch.models import registry
 from b_pinn_kalman_filter_tpu_torch.models.convert import params_from_jax
 from tests import port_parity
 from tests.port_parity import one_torch_thread  # noqa: F401
@@ -80,17 +81,31 @@ def test_generator_draws_are_reproducible():
                                        ('corrector', 'langevin'),
                                        ('corrector', 'ald')])
 def test_unported_samplers_name_the_roadmap(kind, name):
+  """The four updates that once raised naming their ROADMAP.md item (the
+  name is kept from then) are ported and held against JAX in
+  tests/test_torch_ode.py: each name gives its update, and an unknown name
+  raises ``KeyError``."""
   getter = getattr(sampling, f'get_{kind}')
-  with pytest.raises(NotImplementedError, match='ROADMAP.md A.5'):
-    getter(name)
+  assert getter(name) is getattr(sampling, f'{name}_{kind}')
+  with pytest.raises(KeyError):
+    getter(f'{name}_unknown')
 
 
-@pytest.mark.parametrize('method,item', [('ode', 'A.7'),
-                                         ('dpm_solver', 'A.6')])
+@pytest.mark.parametrize('method,item', [('ode', 'A.6'),
+                                         ('dpm_solver', 'A.4')])
 def test_unported_methods_name_the_roadmap(method, item):
+  """The ODE sampler (ROADMAP.md A.6) and DPM-Solver++ (A.4) once raised
+  naming their items (the name is kept from then); ``get_sampling_fn``
+  now builds them, and each samples the tiny DDPM (held against JAX on
+  the MLP in tests/test_torch_samplers.py)."""
   _, config = port_parity.tiny_configs()
   config.sampling.method = method
+  config.sampling.dpm_steps = 2
   sde, eps = sde_lib.get_sde(config)
-  with pytest.raises(NotImplementedError, match=f'ROADMAP.md {item}'):
-    sampling.get_sampling_fn(config, sde, None, SHAPE, lambda x: x, eps,
-                             device='cpu')
+  model = registry.create_model(config, device='cpu')
+  fn = sampling.get_sampling_fn(config, sde, model, SHAPE, lambda x: x, eps,
+                                device='cpu')
+  samples, nfe = fn(generator=torch.Generator().manual_seed(0))
+  assert samples.shape == SHAPE and torch.isfinite(samples).all(), item
+  # DPM-Solver: 2 steps and the denoising prediction; ODE: 1 + 6 a step.
+  assert nfe == 3 if method == 'dpm_solver' else (nfe - 1) % 6 == 0, item
