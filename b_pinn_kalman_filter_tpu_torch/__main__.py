@@ -2,7 +2,8 @@
 
     python -m b_pinn_kalman_filter_tpu_torch --config <config .py>
         --workdir <dir> --mode <mode> [--ckptdir <dir>]
-        [--device cuda|cpu] [--config.<section>.<key>=<value> ...]
+        [--eval_folder <name>] [--device cuda|cpu]
+        [--config.<section>.<key>=<value> ...]
 
 ``--config`` is a file of the port's configs (for example
 ``b_pinn_kalman_filter_tpu_torch/configs/pinn/pinn_pde.py``) whose
@@ -10,10 +11,12 @@
 the config has; its value is read as a Python literal where it is one
 (``5``, ``1e-3``, ``(4, 8)``), else kept as the string.  ``--device``
 (default ``cuda``) is the entry points' device: ``cpu`` runs them on the
-CPU.  Modes ``train``, ``train_pinn``, ``train_bpinn``, ``simulate``,
-``ukf`` and ``inverse`` run the port's entry points; the training modes
-also log to ``<workdir>/stdout.txt``.  ``sample`` and ``eval`` are not
-ported yet and raise ``NotImplementedError``.
+CPU.  Every mode runs the port's entry point: ``train``, ``sample`` (from
+the checkpoint ``--ckptdir``, writing ``<workdir>/sample.png``), ``eval``
+(the checkpoints under ``<workdir>/checkpoints``, into
+``<workdir>/<eval_folder>``), ``inverse``, ``train_pinn``,
+``train_bpinn``, ``simulate`` and ``ukf``; the training modes also log to
+``<workdir>/stdout.txt``.
 """
 
 from __future__ import annotations
@@ -28,8 +31,6 @@ from typing import List, Optional, Sequence
 
 MODES = ('train', 'sample', 'eval', 'inverse', 'train_pinn', 'train_bpinn',
          'simulate', 'ukf')
-# The ROADMAP.md items of the modes whose modules are not ported yet.
-UNPORTED = {'sample': 'A.7', 'eval': 'A.7'}
 OVERRIDE = '--config.'
 
 
@@ -78,6 +79,8 @@ def parse_args(argv: Optional[Sequence[str]] = None):
   parser.add_argument('--workdir', required=True, help='work directory')
   parser.add_argument('--mode', required=True, choices=MODES)
   parser.add_argument('--ckptdir', default=None, help='checkpoint path')
+  parser.add_argument('--eval_folder', default='eval',
+                      help='folder of the eval results under the workdir')
   parser.add_argument('--device', default='cuda',
                       help='device of the entry points (default cuda)')
   args, rest = parser.parse_known_args(argv)
@@ -101,10 +104,15 @@ def setup_logging(workdir: str) -> logging.Handler:
 
 def run(args, config) -> None:
   """Run ``args.mode`` on ``config``."""
-  if args.mode in UNPORTED:
-    raise NotImplementedError(
-        f'--mode {args.mode} is not ported yet: ROADMAP.md '
-        f'{UNPORTED[args.mode]}')
+  if args.mode in ('sample', 'eval'):
+    from b_pinn_kalman_filter_tpu_torch.train import run_lib
+    if args.mode == 'sample':
+      run_lib.sample_from_checkpoint(config, args.ckptdir, args.workdir,
+                                     device=args.device)
+    else:
+      run_lib.evaluate(config, args.workdir, args.eval_folder,
+                       device=args.device)
+    return
   if args.mode == 'simulate':
     from b_pinn_kalman_filter_tpu_torch.kalman import simulator
     simulator.run(config, args.ckptdir, args.workdir, device=args.device)

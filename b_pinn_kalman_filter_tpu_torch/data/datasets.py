@@ -3,11 +3,13 @@ paths, and the inpainting masks.
 
 The port's own copy of the parts of the JAX package's ``data/datasets.py``
 that training the flagship and the PINN and the inverse suite read:
-``get_dataset`` (its CIFAR10, PDE and NC branches), ``NumpyLoader`` (epoch reshuffles, full batches), the
-native reader of the ``cifar-10-batches-py`` pickles, and the synthetic
-stand-in, ``SyntheticImages`` over ``smooth_field``, which ``get_dataset``
-returns when no CIFAR-10 files are present (the same seed gives the same
-bits as the JAX package); ``PDEDataset`` over a synthetic Navier-Stokes
+``get_dataset`` (its CIFAR10, PDE and NC branches, and the one-epoch
+eval loader of ``evaluation=True``), ``NumpyLoader`` (epoch reshuffles,
+full batches, endless or ``num_epochs``), the native reader of the
+``cifar-10-batches-py`` pickles, and the synthetic stand-in,
+``SyntheticImages`` over ``smooth_field``, which ``get_dataset`` returns
+when no CIFAR-10 files are present (the same seed gives the same bits as
+the JAX package); ``PDEDataset`` over a synthetic Navier-Stokes
 rollout; ``NCDataset`` over the ocean-temperature file, read by
 :func:`load_netcdf`, or its synthetic stand-in; ``MaskIterator`` with the
 MNIST idx reader.  Left out: the
@@ -94,22 +96,25 @@ class ArrayImages:
 
 
 class NumpyLoader:
-  """Endless shuffled batch iterator over an indexable dataset.
+  """Shuffled batch iterator over an indexable dataset: endless, or
+  ``num_epochs`` epochs.
 
   Each epoch's order is a permutation from one ``numpy`` generator seeded
   with ``seed`` (the identity order without ``shuffle``); the last partial
-  batch of an epoch is dropped.  Over fewer items than a batch,
-  consecutive reshuffled epochs are concatenated so that every batch is
-  full, as the JAX package's infinite loader does.  (Its finite
-  ``num_epochs`` mode serves the ``evaluate`` mode, not ported yet.)
+  batch of an epoch is dropped, so an epoch over fewer items than a batch
+  yields none (``torch`` ``drop_last``, as the JAX package's finite
+  loader).  An endless loader over fewer items than a batch concatenates
+  consecutive reshuffled epochs so that every batch is full, as the JAX
+  package's does.
   """
 
   def __init__(self, dataset, batch_size: int, shuffle: bool = True,
-               seed: int = 0):
+               seed: int = 0, num_epochs: Optional[int] = None):
     self.dataset = dataset
     self.batch_size = batch_size
     self.shuffle = shuffle
     self.seed = seed
+    self.num_epochs = num_epochs
 
   def _epoch_order(self, rng, n):
     return rng.permutation(n) if self.shuffle else np.arange(n)
@@ -124,17 +129,19 @@ class NumpyLoader:
       return tuple(np.stack(column)
                    for column in zip(*(self.dataset[i] for i in idx)))
 
-    if n < self.batch_size:
+    if self.num_epochs is None and n < self.batch_size:
       buf: list = []
       while True:
         while len(buf) < self.batch_size:
           buf.extend(int(i) for i in self._epoch_order(rng, n))
         idx, buf = buf[:self.batch_size], buf[self.batch_size:]
         yield fetch(idx)
-    while True:
+    epoch = 0
+    while self.num_epochs is None or epoch < self.num_epochs:
       order = self._epoch_order(rng, n)
       for start in range(0, n - self.batch_size + 1, self.batch_size):
         yield fetch([int(i) for i in order[start:start + self.batch_size]])
+      epoch += 1
 
 
 def random_crop(rng: np.random.Generator, img: np.ndarray,
@@ -380,10 +387,11 @@ def load_cifar10_batches(root: str):
   return ArrayImages(*train), ArrayImages(*test)
 
 
-def get_dataset(config, device=None):
-  """(train loader, eval loader) of NHWC float32 batches of
-  ``training.batch_size``, as the JAX package's ``get_dataset`` gives the
-  train loops.
+def get_dataset(config, device=None, evaluation: bool = False):
+  """(train loader, eval loader) of NHWC float32 batches, as the JAX
+  package's ``get_dataset`` gives them: of ``training.batch_size`` and
+  endless; with ``evaluation``, of ``eval.batch_size``, the eval loader
+  one epoch (``evaluate`` reads it to its end).
 
   CIFAR10: [0, 1] images from the local ``cifar-10-batches-py`` files
   under :func:`data_dir` where present, else ``SyntheticImages`` (4096
@@ -400,7 +408,8 @@ def get_dataset(config, device=None):
   NC, NC_P: ``NCDataset`` over :func:`nc_data` (``data.land_cut``), the
   test split's crops from ``config.seed + 1``.
   """
-  batch_size = config.training.batch_size
+  batch_size = (config.eval.batch_size if evaluation
+                else config.training.batch_size)
   size, channels = config.data.image_size, config.data.num_channels
   if config.data.dataset == 'CIFAR10':
     datasets = load_cifar10_batches(data_dir())
@@ -425,5 +434,6 @@ def get_dataset(config, device=None):
   train_loader = NumpyLoader(train_ds, batch_size, shuffle=True,
                              seed=config.seed)
   test_loader = NumpyLoader(test_ds, batch_size, shuffle=False,
-                            seed=config.seed + 1)
+                            seed=config.seed + 1,
+                            num_epochs=1 if evaluation else None)
   return train_loader, test_loader

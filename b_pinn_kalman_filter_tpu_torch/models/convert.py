@@ -207,3 +207,42 @@ def train_state_to_jax(state) -> Dict[str, Any]:
     count = {label: s.count for label, s in opt.items()}
   return dict(step=state.step, params=_unflatten(state.params), mu=mu,
               nu=nu, count=count, ema_params=_unflatten(state.ema_params))
+
+
+def random_proxy_from_jax(weights) -> tuple:
+  """The JAX random-feature CNN's ``(w1, w2, w3, w4)`` (three HWIO 3x3
+  kernels and the head, as ``jax.random.normal`` drew them under
+  ``PRNGKey(2023)``) as the port's ``make_random_feature_fn(weights=)``
+  takes them: float32 numpy, shapes checked."""
+  ws = tuple(np.asarray(w, np.float32) for w in weights)
+  if len(ws) != 4 or any(w.ndim != 4 or w.shape[:2] != (3, 3)
+                         for w in ws[:3]) or ws[3].ndim != 2:
+    raise ValueError('the random proxy takes three (3, 3, in, out) kernels '
+                     'and an (in, out) head')
+  for a, b in zip(ws, ws[1:]):
+    if a.shape[-1] != b.shape[-2]:
+      raise ValueError(f'widths {a.shape} -> {b.shape} do not chain')
+  return ws
+
+
+def inception_params_from_jax(params: Mapping[str, Any]) -> Dict[str, Any]:
+  """The JAX package's InceptionV3 ``{name: (HWIO kernel, bias)}`` (BN
+  folded; ``random_inception_params`` or a loaded file) as the port's
+  ``train/inception.py`` takes them: float32 numpy, every conv of its
+  ``CONV_SPEC`` and the fc present with its shape."""
+  from b_pinn_kalman_filter_tpu_torch.train import inception
+  want = {name: (k + (cin, cout), (cout,))
+          for name, k, cin, cout, _, _ in inception.CONV_SPEC}
+  want['fc'] = ((inception.FEATURE_DIM, inception.NUM_LOGITS),
+                (inception.NUM_LOGITS,))
+  if set(params) != set(want):
+    raise ValueError(f'InceptionV3 names differ: '
+                     f'{sorted(set(params) ^ set(want))[:5]}')
+  out = {}
+  for name, (w, b) in params.items():
+    w, b = np.asarray(w, np.float32), np.asarray(b, np.float32)
+    if (w.shape, b.shape) != want[name]:
+      raise ValueError(f'{name}: shapes {w.shape}, {b.shape}, expected '
+                       f'{want[name]}')
+    out[name] = (w, b)
+  return out

@@ -25,9 +25,9 @@ import torch.autograd.forward_ad as fwAD
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, 'csrc')
 BUILD_DIR = os.path.join(_PKG, '_build')
-SOURCES = ('conv3x3', 'conv3x3_wgmma', 'groupnorm', 'groupnorm_pergroup',
-           'correlation', 'correlation_bwd', 'correlation_tile', 'ns_step',
-           'ns_step_staged')
+SOURCES = ('conv3x3', 'conv3x3_wgmma', 'groupnorm', 'groupnorm_jvp',
+           'groupnorm_pergroup', 'correlation', 'correlation_bwd',
+           'correlation_tile', 'ns_step', 'ns_step_staged')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
@@ -133,18 +133,36 @@ def forward_only(what: str, *tensors) -> None:
         'slice.  Call it under torch.no_grad() or torch.inference_mode().')
 
 
-def tangents(what: str, *tensors) -> bool:
+def has_tangent(*tensors) -> bool:
   """Whether any of ``tensors`` carries a forward-mode tangent
-  (``torch.autograd.forward_ad`` or ``torch.func.jvp``).
+  (``torch.autograd.forward_ad`` or ``torch.func.jvp``)."""
+  return any(t is not None and fwAD.unpack_dual(t).tangent is not None
+             for t in tensors)
 
-  Raises ``NotImplementedError`` for such a tensor off the CPU: the kernels
-  have no forward-mode rule yet (ROADMAP.md B.3), and a launch would drop
-  the tangent without a word.  On the CPU the plain versions carry it.
+
+def differentiated(*tensors) -> bool:
+  """Whether a call on ``tensors`` must go through its autograd Function:
+  autograd wants a gradient of one of them, or one carries a forward-mode
+  tangent.  A dual tensor has ``requires_grad`` False, so a test of
+  ``requires_grad`` alone would send it to the raw launch, whose output
+  from ``torch.empty`` has no tangent."""
+  return (torch.is_grad_enabled() and any(
+      t is not None and t.requires_grad for t in tensors)) or has_tangent(
+          *tensors)
+
+
+def tangents(what: str, *tensors) -> bool:
+  """Whether any of ``tensors`` carries a forward-mode tangent, for a
+  kernel without a forward-mode rule (K3 and its backward, B1 and B2: no
+  path of the port takes their forward mode).
+
+  Raises ``NotImplementedError`` for such a tensor off the CPU: a launch
+  would drop the tangent without a word.  On the CPU the plain versions
+  carry it.  (K1 and K2 have forward-mode rules: their Functions' ``jvp``.)
   """
-  dual = [t for t in tensors
-          if t is not None and fwAD.unpack_dual(t).tangent is not None]
+  dual = [t for t in tensors if has_tangent(t)]
   if any(t.device.type != 'cpu' for t in dual):
     raise NotImplementedError(
-        f'{what}: forward-mode tangents through the kernel are not '
-        'supported yet (ROADMAP.md B.3); use reverse mode')
+        f'{what}: this kernel has no forward-mode rule (no path of the '
+        'port needs one); use reverse mode')
   return bool(dual)

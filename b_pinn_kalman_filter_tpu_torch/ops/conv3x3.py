@@ -29,6 +29,13 @@ and on the CPU it is :func:`conv3x3_plain` with the same ``W'``.  The
 weight gradient is ``torch.nn.grad.conv2d_weight`` (cuDNN on the card): the
 JAX package leaves that contraction to XLA, outside any Pallas kernel.
 Gradients come out in ``x.dtype`` (data) and the parameters' dtypes.
+
+Forward mode (``torch.func.jvp``, ``torch.autograd.forward_ad``): the
+conv is bilinear in (x, W), so ``dy = K1(dx, W) + K1(x, dW) + db``, each
+term only where its tangent is present; a K1 launch each on the card,
+counted in ``launches_by_use['jvp']`` (the likelihood's divergence: one
+launch on the tangent of x, no bias), the plain version on the CPU.  The
+tangent comes out in ``x.dtype``, like the output.
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ import math
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.autograd.forward_ad as fwAD
 import torch.nn.functional as F
 
 from b_pinn_kalman_filter_tpu_torch.ops import _build
@@ -154,14 +162,11 @@ def conv3x3(x: torch.Tensor, kernel: torch.Tensor,
   """x (B,H,W,Cin), kernel (3,3,Cin,Cout), bias (Cout,) -> (B,H,W,Cout).
 
   f32 or bf16 ``x``; f32 accumulation; output in ``x.dtype``.
-  Differentiable once in each input (see the module docstring).  A tensor
-  with a forward-mode tangent takes the plain version on the CPU and
-  raises on the card (ROADMAP.md B.3).
+  Differentiable once in each input, in reverse and in forward mode (see
+  the module docstring).
   """
-  _build.tangents('conv3x3', x, kernel, bias)
-  if torch.is_grad_enabled() and any(
-      t is not None and t.requires_grad for t in (x, kernel, bias)):
-    return _Conv3x3.apply(x, kernel, bias)
+  if _build.differentiated(x, kernel, bias):
+    return _Conv3x3.apply(x, kernel, bias, 'forward')
   return _conv(x, kernel, bias, 'forward')
 
 
@@ -172,14 +177,28 @@ def flipped(kernel: torch.Tensor) -> torch.Tensor:
 
 
 class _Conv3x3(torch.autograd.Function):
-  """K1 with its backward: dx by K1 on :func:`flipped` weights, dW by
-  ``conv2d_weight``, db by a sum (JAX ``_fused_conv_bwd``)."""
+  """K1 (``use`` names the launch's count) with its backward (dx by K1 on
+  :func:`flipped` weights, dW by ``conv2d_weight``, db by a sum: JAX
+  ``_fused_conv_bwd``) and its forward-mode rule (K1 on each tangent).
+
+  Under ``torch.func.jvp`` the rule gets functorch's wrapped tensors,
+  whose data a launch cannot read; so each of its terms is this Function
+  again, whose forward gets the unwrapped ones, on x stripped of its
+  tangent (no term of second order is formed) and on detached tensors:
+  the tangent is not differentiated again (the backward is once
+  differentiable), so no graph holds its activations."""
 
   @staticmethod
-  def forward(ctx, x, kernel, bias):
+  def forward(x, kernel, bias, use):
+    return _conv(x, kernel, bias, use)
+
+  @staticmethod
+  def setup_context(ctx, inputs, output):
+    x, kernel, bias, _ = inputs
+    ctx.set_materialize_grads(False)    # a missing tangent comes as None
     ctx.save_for_backward(x, kernel)
+    ctx.save_for_forward(x, kernel)
     ctx.bias_dtype = None if bias is None else bias.dtype
-    return _conv(x, kernel, bias, 'forward')
 
   @staticmethod
   @torch.autograd.function.once_differentiable
@@ -196,14 +215,31 @@ class _Conv3x3(torch.autograd.Function):
       dk = dk.permute(2, 3, 1, 0).to(kernel.dtype)        # OIHW -> HWIO
     if ctx.bias_dtype is not None and ctx.needs_input_grad[2]:
       db = dy.float().sum((0, 1, 2)).to(ctx.bias_dtype)
-    return dx, dk, db
+    return dx, dk, db, None
+
+  @staticmethod
+  def jvp(ctx, dx, dk, db, _):
+    x, kernel = (fwAD.unpack_dual(t).primal.detach()
+                 for t in ctx.saved_tensors)
+    terms = []
+    if dx is not None:
+      terms.append(_Conv3x3.apply(dx.detach().to(x.dtype), kernel, None,
+                                  'jvp'))
+    if dk is not None:
+      terms.append(_Conv3x3.apply(x, dk.detach(), None, 'jvp'))
+    if not terms:
+      terms.append(x.new_zeros(x.shape[:3] + kernel.shape[3:]))
+    dy = terms[0] if len(terms) == 1 else terms[0] + terms[1]
+    if db is not None:
+      dy = (dy.float() + db.detach().float()).to(x.dtype)
+    return dy
 
 
 def _conv(x: torch.Tensor, kernel: torch.Tensor,
           bias: Optional[torch.Tensor], use: str) -> torch.Tensor:
-  """The forward of :func:`conv3x3` (``use`` 'forward') or its data
-  gradient ('data_grad'): the plain version for a CPU tensor, else a
-  kernel launch."""
+  """The forward of :func:`conv3x3` (``use`` 'forward'), its data
+  gradient ('data_grad') or a term of its tangent ('jvp'): the plain
+  version for a CPU tensor, else a kernel launch."""
   if x.device.type == 'cpu':
     return conv3x3_plain(x, kernel, bias)
   if x.device.type != 'cuda':
@@ -268,4 +304,4 @@ def _launch(which: str, x: torch.Tensor, kernel: torch.Tensor,
 
 conv3x3.launches = 0
 conv3x3.launches_by_kernel = {'wgmma': 0, 'direct': 0}
-conv3x3.launches_by_use = {'forward': 0, 'data_grad': 0}
+conv3x3.launches_by_use = {'forward': 0, 'data_grad': 0, 'jvp': 0}

@@ -43,8 +43,8 @@ derivatives of any order stay on the kernels.  Each has the vmap rule
 that folds the mapped dimensions into the batch.  ``correlation_df1`` and
 ``correlation_df2`` count their launches in ``.launches`` and by image
 size in ``.sizes``.  Forward-mode
-tangents take the plain version on the CPU and raise on the card
-(ROADMAP.md B.3).
+tangents take the plain version on the CPU and raise on the card: no
+path of the port takes K3's forward mode, so it has no rule.
 """
 
 from __future__ import annotations

@@ -13,6 +13,16 @@ raises.  Statistics are f32, scale and bias f32, output in ``x.dtype``.
 Gradients, as the JAX custom_vjp takes them: the forward is the kernel,
 the backward recomputes through :func:`groupnorm_act_plain` and returns its
 vjp, on every device.
+
+Forward mode (``torch.func.jvp``, ``torch.autograd.forward_ad``; the
+likelihood's divergence): per (image, group) of n elements, with mu, r =
+1/sqrt(var + eps) and xh = (x - mu) r as the forward has them, m1 =
+mean(dx) and m2 = mean(xh dx), the tangent of xh is r (dx - m1 - xh m2);
+then dz = scale dxh + dscale xh + dbias and dy = act'(z) dz, z = scale xh
++ bias.  On the card that is the kernel ``csrc/groupnorm_jvp.cu``
+(:func:`groupnorm_act_jvp`, counted in ``groupnorm_act_jvp.launches``),
+which reads x and dx once and writes dy alone: the Function's forward
+gave y by a K2 launch.  On the CPU it is :func:`groupnorm_act_jvp_plain`.
 """
 
 from __future__ import annotations
@@ -20,9 +30,10 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
+import torch.autograd.forward_ad as fwAD
 import torch.nn.functional as F
 
 from b_pinn_kalman_filter_tpu_torch.ops import _build
@@ -33,6 +44,11 @@ _SIGNATURES = {
     'groupnorm_act_nhwc': (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 5
                           + (ctypes.c_float,) + (ctypes.c_int,) * 7
                           + (ctypes.c_void_p,),
+}
+_JVP_SIGNATURES = {
+    'groupnorm_act_jvp_nhwc': (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 5
+                              + (ctypes.c_float,) + (ctypes.c_int,) * 7
+                              + (ctypes.c_void_p,),
 }
 _PERGROUP_SIGNATURES = {
     'groupnorm_act_pergroup_nhwc': (ctypes.c_void_p,) * 4
@@ -102,31 +118,92 @@ def groupnorm_plan(H: int, W: int, C: int, G: int, itemsize: int) -> Dict:
               on_chip=on_chip, smem_bytes=smem, slice_bytes=slice_bytes)
 
 
+def jvp_plan(H: int, W: int, C: int, G: int, itemsize: int) -> Dict:
+  """How csrc/groupnorm_jvp.cu covers one image: K2's cluster, threads,
+  vector width and thread columns (:func:`groupnorm_plan`), so that its
+  sums of x run in K2's order and its mu and r are K2's bits; ``on_chip``
+  where a block's slices of x and of dx both fit beside its statistics
+  (one plane of per-row sums and 10 C + 4 G floats), else the kernel
+  reads them again for its later passes."""
+  plan = dict(groupnorm_plan(H, W, C, G, itemsize))
+  rows = plan['threads'] // plan['q']
+  stat_bytes = 4 * ((rows * C + 10 * C + 4 * G + 3) // 4 * 4)
+  on_chip = stat_bytes + 2 * plan['slice_bytes'] <= SMEM_LIMIT
+  plan.update(on_chip=on_chip, smem_bytes=stat_bytes + (
+      2 * plan['slice_bytes'] if on_chip else 0))
+  return plan
+
+
+def groupnorm_act_jvp_plain(x: torch.Tensor, dx: Optional[torch.Tensor],
+                            scale: torch.Tensor, bias: torch.Tensor,
+                            dscale: Optional[torch.Tensor] = None,
+                            dbias: Optional[torch.Tensor] = None,
+                            num_groups: int = 32, act: str = 'silu',
+                            eps: float = 1e-6) -> torch.Tensor:
+  """The tangent of :func:`groupnorm_act_plain` at (x, scale, bias) along
+  (dx, dscale, dbias), each tangent None for zero, by the formula of the
+  module docstring in f32; output in ``x.dtype``."""
+  B, H, W, C = x.shape
+  shape = (B, H * W, num_groups, C // num_groups)
+  g = x.float().reshape(shape)
+  mean = g.mean(dim=(1, 3), keepdim=True)
+  var = g.var(dim=(1, 3), keepdim=True, unbiased=False)
+  r = torch.rsqrt(var + eps)
+  xh = (g - mean) * r
+  dxh = torch.zeros_like(xh)
+  if dx is not None:
+    d = dx.float().reshape(shape)
+    m1 = d.mean(dim=(1, 3), keepdim=True)
+    m2 = (xh * d).mean(dim=(1, 3), keepdim=True)
+    dxh = r * (d - m1 - xh * m2)
+  xh, dxh = xh.reshape(x.shape), dxh.reshape(x.shape)
+  z = xh * scale.float() + bias.float()
+  dz = dxh * scale.float()
+  if dscale is not None:
+    dz = dz + xh * dscale.float()
+  if dbias is not None:
+    dz = dz + dbias.float()
+  if act == 'silu':
+    s = torch.sigmoid(z)
+    dz = dz * s * (1 + z * (1 - s))
+  elif act == 'elu':
+    dz = dz * torch.where(z > 0, torch.ones_like(z), torch.exp(z))
+  elif act != 'none':
+    raise ValueError(f'unknown activation {act!r}')
+  return dz.to(x.dtype)
+
+
 def groupnorm_act(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                   num_groups: int = 32, act: str = 'silu',
                   eps: float = 1e-6) -> torch.Tensor:
   """x (B,H,W,C) -> act(GroupNorm(x)), same shape and dtype.
 
-  Differentiable once in ``x``, ``scale`` and ``bias``.  A tensor with a
-  forward-mode tangent takes the plain version on the CPU and raises on
-  the card (ROADMAP.md B.3).
+  Differentiable once in ``x``, ``scale`` and ``bias``, in reverse and in
+  forward mode (see the module docstring).
   """
-  _build.tangents('groupnorm_act', x, scale, bias)
-  if torch.is_grad_enabled() and any(
-      t.requires_grad for t in (x, scale, bias)):
+  if _build.differentiated(x, scale, bias):
     return _GroupNormAct.apply(x, scale, bias, num_groups, act, eps)
   return _groupnorm_act(x, scale, bias, num_groups, act, eps)
 
 
 class _GroupNormAct(torch.autograd.Function):
   """K2 forward; backward by recomputing the plain version (JAX
-  ``_groupnorm_act_bwd``)."""
+  ``_groupnorm_act_bwd``); forward mode by :class:`_GroupNormActJvp` on
+  the primals stripped of their tangents and detached (under
+  ``torch.func.jvp`` the rule gets functorch's wrapped tensors, which only
+  a Function's forward sees unwrapped)."""
 
   @staticmethod
-  def forward(ctx, x, scale, bias, num_groups, act, eps):
-    ctx.save_for_backward(x, scale, bias)
-    ctx.args = (num_groups, act, eps)
+  def forward(x, scale, bias, num_groups, act, eps):
     return _groupnorm_act(x, scale, bias, num_groups, act, eps)
+
+  @staticmethod
+  def setup_context(ctx, inputs, output):
+    x, scale, bias, *args = inputs
+    ctx.set_materialize_grads(False)    # a missing tangent comes as None
+    ctx.save_for_backward(x, scale, bias)
+    ctx.save_for_forward(x, scale, bias)
+    ctx.args = tuple(args)
 
   @staticmethod
   @torch.autograd.function.once_differentiable
@@ -136,29 +213,65 @@ class _GroupNormAct(torch.autograd.Function):
       y = groupnorm_act_plain(*inputs, *ctx.args)
     return torch.autograd.grad(y, inputs, dy) + (None, None, None)
 
+  @staticmethod
+  def jvp(ctx, dx, dscale, dbias, *_):
+    # Detached: the tangent is not differentiated again.
+    x, scale, bias = (fwAD.unpack_dual(t).primal.detach()
+                      for t in ctx.saved_tensors)
+    dx, dscale, dbias = (None if t is None else t.detach()
+                         for t in (dx, dscale, dbias))
+    return _GroupNormActJvp.apply(x, dx, scale, bias, dscale, dbias,
+                                  *ctx.args)
+
+
+class _GroupNormActJvp(torch.autograd.Function):
+  """:func:`groupnorm_act_jvp` as a Function, so that under
+  ``torch.func.jvp`` its launch sees unwrapped tensors.  Not
+  differentiated itself."""
+
+  @staticmethod
+  def forward(x, dx, scale, bias, dscale, dbias, num_groups, act, eps):
+    return groupnorm_act_jvp(x, dx, scale, bias, dscale, dbias, num_groups,
+                             act, eps)
+
+  @staticmethod
+  def setup_context(ctx, inputs, output):
+    pass
+
+  @staticmethod
+  def backward(ctx, ddy):
+    raise NotImplementedError('the tangent of groupnorm_act is not '
+                              'differentiated')
+
+
+def _check(what, x, scale, bias, num_groups, act):
+  """Raise on what the kernels do not take; returns (B, H, W, C)."""
+  if x.device.type != 'cuda':
+    raise ValueError(f'{what}: no kernel for device {x.device}')
+  if x.ndim != 4:
+    raise ValueError(f'{what}: x {tuple(x.shape)} is not NHWC')
+  B, H, W, C = x.shape
+  if num_groups <= 0 or C % num_groups:
+    raise ValueError(f'{what}: {num_groups} groups do not divide {C}')
+  if act not in ACTS:
+    raise ValueError(f'unknown activation {act!r}')
+  if x.dtype not in _DTYPE_CODES:
+    raise TypeError(f'{what}: dtype {x.dtype} not supported')
+  for t in (scale, bias):
+    if t is not None and tuple(t.shape) != (C,):
+      raise ValueError(f'{what}: scale and bias must be ({C},)')
+    if t is not None and t.device != x.device:
+      raise ValueError(f'{what}: x, scale and bias must share a device')
+  if x.numel() >= 2 ** 31:
+    raise ValueError(f'{what}: tensor too large for 32-bit indexing')
+  return B, H, W, C
+
 
 def _groupnorm_act(x, scale, bias, num_groups, act, eps):
   """The forward: the plain version for a CPU tensor, else the kernel."""
   if x.device.type == 'cpu':
     return groupnorm_act_plain(x, scale, bias, num_groups, act, eps)
-  if x.device.type != 'cuda':
-    raise ValueError(f'groupnorm_act: no kernel for device {x.device}')
-  if x.ndim != 4:
-    raise ValueError(f'groupnorm_act: x {tuple(x.shape)} is not NHWC')
-  B, H, W, C = x.shape
-  if num_groups <= 0 or C % num_groups:
-    raise ValueError(f'groupnorm_act: {num_groups} groups do not divide {C}')
-  if act not in ACTS:
-    raise ValueError(f'unknown activation {act!r}')
-  if x.dtype not in _DTYPE_CODES:
-    raise TypeError(f'groupnorm_act: dtype {x.dtype} not supported')
-  if tuple(scale.shape) != (C,) or tuple(bias.shape) != (C,):
-    raise ValueError(f'groupnorm_act: scale and bias must be ({C},)')
-  if x.numel() >= 2 ** 31:
-    raise ValueError('groupnorm_act: tensor too large for 32-bit indexing')
-  if scale.device != x.device or bias.device != x.device:
-    raise ValueError('groupnorm_act: x, scale and bias must share a device')
-
+  B, H, W, C = _check('groupnorm_act', x, scale, bias, num_groups, act)
   plan = groupnorm_plan(H, W, C, num_groups, x.element_size())
   if plan['smem_bytes'] > SMEM_LIMIT:
     raise ValueError(f'groupnorm_act: C = {C} needs {plan["smem_bytes"]} '
@@ -175,6 +288,45 @@ def _groupnorm_act(x, scale, bias, num_groups, act, eps):
   _build.check_launch(err, 'groupnorm_act')
   groupnorm_act.launches += 1
   return y
+
+
+def groupnorm_act_jvp(x: torch.Tensor, dx: Optional[torch.Tensor],
+                      scale: torch.Tensor, bias: torch.Tensor,
+                      dscale: Optional[torch.Tensor] = None,
+                      dbias: Optional[torch.Tensor] = None,
+                      num_groups: int = 32, act: str = 'silu',
+                      eps: float = 1e-6) -> torch.Tensor:
+  """The tangent of :func:`groupnorm_act` along (dx, dscale, dbias), each
+  None for zero: :func:`groupnorm_act_jvp_plain` for a CPU tensor, else
+  one launch of csrc/groupnorm_jvp.cu.  Output in ``x.dtype``."""
+  if x.device.type == 'cpu':
+    return groupnorm_act_jvp_plain(x, dx, scale, bias, dscale, dbias,
+                                   num_groups, act, eps)
+  B, H, W, C = _check('groupnorm_act_jvp', x, scale, bias, num_groups, act)
+  _check('groupnorm_act_jvp', x, dscale, dbias, num_groups, act)
+  if dx is not None and (dx.shape != x.shape or dx.device != x.device):
+    raise ValueError('groupnorm_act_jvp: dx must be like x')
+  plan = jvp_plan(H, W, C, num_groups, x.element_size())
+  if plan['smem_bytes'] > SMEM_LIMIT:
+    raise ValueError(f'groupnorm_act_jvp: C = {C} needs '
+                     f'{plan["smem_bytes"]} bytes of shared memory for its '
+                     'statistics')
+  x, s, b, dy, stream = _operands(x, scale, bias)
+  dx = torch.zeros_like(x) if dx is None else dx.to(x.dtype).contiguous()
+  x, dx = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (x, dx))
+  ds, db = (None if t is None else t.float().contiguous()
+            for t in (dscale, dbias))
+  lib = _build.load('groupnorm_jvp', _JVP_SIGNATURES)
+  err = lib.groupnorm_act_jvp_nhwc(
+      x.data_ptr(), dx.data_ptr(), s.data_ptr(), b.data_ptr(),
+      None if ds is None else ds.data_ptr(),
+      None if db is None else db.data_ptr(), dy.data_ptr(), B, H * W, C,
+      num_groups, ACTS[act], eps, _DTYPE_CODES[x.dtype], plan['cluster'],
+      plan['threads'], plan['vec'], plan['q'], int(plan['on_chip']),
+      plan['smem_bytes'], stream)
+  _build.check_launch(err, 'groupnorm_act_jvp')
+  groupnorm_act_jvp.launches += 1
+  return dy
 
 
 def _operands(x, scale, bias):
@@ -201,3 +353,4 @@ def _groupnorm_act_pergroup(x: torch.Tensor, scale: torch.Tensor,
 
 
 groupnorm_act.launches = 0
+groupnorm_act_jvp.launches = 0

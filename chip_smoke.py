@@ -47,16 +47,16 @@ Run from the root of a checkout; it needs one CUDA card, ``nvcc`` and
    and the samples finite; then profile one steady sampler step
    (``torch.profiler``): host and device-busy seconds, idle share, top
    device ops;
-7. the training step (``--train-steps``, default 40): one step's loss and
+7. the training step (``--train-steps``, default 20): one step's loss and
    gradients at the flagship's full width and batch 128, kernel path
    against plain path (the same randomised parameters, batch, t, z and
    dropout generator), in f32 (TF32 off) and bf16, each leaf's gradient
    within the limit; K1 as the data gradient (dy through the flipped
    kernel) at every site shape at batch 128, against its plain version
    in f32 and bf16 and timed in bf16 beside ``torch.nn.grad.conv2d_input``;
-   then ``run_lib.train`` at batch 128 in bf16 for steps 0..40 with the
+   then ``run_lib.train`` at batch 128 in bf16 for steps 0..20 with the
    cadence cut so that log, eval, the preemption checkpoint and a snapshot
-   (sampling at N = ``--steps``) fire, the launch counts set to 0 before
+   (sampling at N = 100) fire, the launch counts set to 0 before
    and read after (K1: per step every forward site and every data-gradient
    site, each the wgmma kernel; K2: every forward site; plus the eval and
    sampling forwards); checks: finite losses, parameters moved, the EMA
@@ -90,7 +90,7 @@ Run from the root of a checkout; it needs one CUDA card, ``nvcc`` and
    and noise), every leaf within the limit of the largest leaf's
    gradient; then ``pinn_lib.train_prelim`` on the synthetic PDE data
    (rolled out by K4 at 200x128 into an empty data directory) for steps
-   0..``--prelim-steps`` (default 40) with the cadence cut so that log,
+   0..``--prelim-steps`` (default 20) with the cadence cut so that log,
    eval, the preemption checkpoint and a snapshot fire, the launch counts
    set to 0 before and read after (K3: per train step 5 forward, 5 B1 and
    5 B2 launches, per eval 5 forward; K4: one per rollout frame); steady
@@ -109,7 +109,7 @@ Run from the root of a checkout; it needs one CUDA card, ``nvcc`` and
    by stage of the residual (forward, first and second derivatives,
    parameter gradient), by level, for a train step and an eval step; then
    ``pinn_lib.train``: phase 1 for steps 0..2, phase 2 for steps
-   2..2 + ``--pinn-steps`` (default 20) with the cadence cut so that log,
+   2..2 + ``--pinn-steps`` (default 6) with the cadence cut so that log,
    eval, the ``checkpoint_pinn`` preemption checkpoint and a snapshot fire
    in phase 2, the launch counts set to 0 before and read after (against
    the step's and the eval's counts); checks: finite losses, every leaf
@@ -129,7 +129,7 @@ Run from the root of a checkout; it needs one CUDA card, ``nvcc`` and
    0..2, phase 2 for 2..4) and ``train_bpinn`` from its last snapshot:
    first its step 0 alone (at lr 0: mu must equal the snapshot's
    ``ema_params`` bit for bit, rho ``inv_softplus(delta |w|)``), then
-   steps 0..``--bpinn-steps`` (default 20) with log, eval, the preemption
+   steps 0..``--bpinn-steps`` (default 10) with log, eval, the preemption
    checkpoint and a snapshot firing, the launch counts set to 0 before and
    read after; checks: finite losses, every mu and rho leaf moved, both
    groups' Adam counts, the steady step's seconds and samples/s, the
@@ -155,18 +155,36 @@ Run from the root of a checkout; it needs one CUDA card, ``nvcc`` and
    launches, peak memory, the three files), the request again on the
    built model and one guided evaluation under ``torch.profiler``; the
    controlled sampler by RK45 (NFE, status, seconds); DPS by ``fixed`` at
-   ``--fixed-steps`` (default 50 of the reference's 5000);
+   ``--fixed-steps`` (default 25 of the reference's 5000);
    ``run_lib.sample`` at the flagship by DPM-Solver (batch 8, 20 steps);
    and ``python -m b_pinn_kalman_filter_tpu_torch --mode inverse`` in a
    subprocess;
-13. print the kernel table as one JSON line (every kernel of the paths and
+13. the flagship's ``eval`` and ``sample`` modes: K1's forward-mode term
+   (K1 on the tangent) and the K2 JVP kernel (csrc/groupnorm_jvp.cu)
+   against their plain versions at every flagship site (batch 8, f32 and
+   bf16), timed in bf16 as in phase 3 beside ``torch.func.jvp`` of
+   ``F.conv2d`` and of ``F.group_norm`` + ``F.silu``; one drift-plus-divergence
+   evaluation of the likelihood (one forward-mode pass of the U-Net,
+   every parameter randomised, batch 8), kernel path against plain path,
+   with its launches (79 K1 on x and 79 on the tangent, 76 K2 and 76 K2
+   JVP); ``run_lib.evaluate`` on phase 7's ``checkpoint_1`` with the
+   loss, bits/dim and sampling on (cuts: ``eval.batch_size`` 256,
+   ``bpd_dataset`` 'train', 128 samples at N = 100), the launch counts
+   set to 0 before and read after, its files, FID/KID/IS and their
+   feature source, one bpd evaluation at batch 256 under the profiler
+   and timed in turns with the same by ``torch.func.jvp``, and 8 images'
+   bpd kernel path against plain path in f32 (within 1e-3, the ODE at
+   rtol = atol = 1e-3); then ``--mode sample --ckptdir`` (batch 8, N =
+   100) and ``--mode eval`` (the loss) in subprocesses;
+14. print the kernel table as one JSON line (every kernel of the paths and
    every yardstick beside it; K3's and K3 backward's rows also carry their
    phase-2 and B-PINN launches, device ms and bounds a step; K1's, K1 data
-   gradient's and K2's their DPS guided evaluation's and request's), then
-   the ``{"ok": true, ...}`` line.  With ``--out DIR`` the per-shape
+   gradient's and K2's their DPS guided evaluation's and request's; K1
+   JVP's and K2 JVP's launches over the evaluate run and an evaluation),
+   then the ``{"ok": true, ...}`` line.  With ``--out DIR`` the per-shape
    details go to ``DIR/chip_smoke.json``.
 
-Error limits (relative to max |reference|), in phases 3 to 5, 7 and 9 to 12:
+Error limits (relative to max |reference|), in phases 3 to 5, 7 and 9 to 13:
 f32 1e-4 (K3 at third order 1e-5); bf16 3e-2, the bound
 tests/test_winograd.py holds bf16 Winograd to.
 
@@ -193,9 +211,11 @@ from torch.func import functional_call
 from torch.profiler import ProfilerActivity, profile, schedule
 
 from b_pinn_kalman_filter_tpu_torch import configs
-from b_pinn_kalman_filter_tpu_torch.core import losses, sampling
+from b_pinn_kalman_filter_tpu_torch.core import likelihood, losses, sampling
 from b_pinn_kalman_filter_tpu_torch.core import sde as sde_lib
 from b_pinn_kalman_filter_tpu_torch.data.datasets import get_dataset
+from b_pinn_kalman_filter_tpu_torch.data.scalers import (
+    get_data_inverse_scaler, get_data_scaler)
 from b_pinn_kalman_filter_tpu_torch.data.ns_rollout import ns_rollout
 from b_pinn_kalman_filter_tpu_torch.inverse import conditional_sampling as cs
 from b_pinn_kalman_filter_tpu_torch.inverse import (
@@ -219,6 +239,9 @@ from b_pinn_kalman_filter_tpu_torch.utils.misc import PNG_SIGNATURE
 
 CONFIG = 'vp/cifar10_ddpmpp_continuous'
 BATCH = 8
+# The train phase's snapshot sampling: N = 100 (the serve phase runs the
+# config's 1000).
+SNAPSHOT_STEPS = 100
 TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 # Published H100 SXM peaks (NVIDIA H100 datasheet): HBM 3.35 TB/s;
 # bf16 tensor cores 989 TFLOP/s; f32 on the CUDA cores 67 TFLOP/s.
@@ -987,13 +1010,14 @@ def train_grad_phase(seed):
   return out, failures
 
 
-def train_phase(steps, train_steps, per_forward, seed):
+def train_phase(steps, train_steps, per_forward, seed, workdir):
   """``run_lib.train`` at the flagship's full width, batch 128, bf16, for
   ``train_steps`` + 1 steps with the cadence cut so that log, eval, the
   preemption checkpoint and a snapshot (sampling at N = ``steps``) fire;
   the launch counts set to 0 before and read after; then a second call
-  that resumes from the preemption checkpoint.  Returns (report,
-  launches, failures)."""
+  that resumes from the preemption checkpoint.  ``workdir`` keeps its
+  checkpoints for the eval phase.  Returns (report, launches,
+  failures)."""
   config = configs.get_config(CONFIG)
   config.model.num_scales = steps
   t = config.training
@@ -1003,62 +1027,64 @@ def train_phase(steps, train_steps, per_forward, seed):
   t.snapshot_freq_for_preemption = train_steps // 2
   t.snapshot_freq = train_steps
   failures, history = [], []
-  with tempfile.TemporaryDirectory() as workdir:
-    reset_counts()
-    torch.cuda.reset_peak_memory_stats()
-    torch.cuda.synchronize()
-    start = time.time()
-    state = run_lib.train(config, workdir, device='cuda', history=history)
-    torch.cuda.synchronize()
-    total_s = time.time() - start
-    peak = torch.cuda.max_memory_allocated()
-    launches = {'conv3x3': k1.conv3x3.launches,
-                'groupnorm_act': k2.groupnorm_act.launches}
-    by_kernel = dict(k1.conv3x3.launches_by_kernel)
-    by_use = dict(k1.conv3x3.launches_by_use)
-    fired = collections.Counter(e for h in history for e in h['events'])
-    n_steps = len(history)
-    forwards = n_steps + fired['eval'] + fired['snapshot'] * steps
-    expected = {'conv3x3': per_forward['conv3x3'] * (forwards + n_steps),
-                'groupnorm_act': per_forward['groupnorm_act'] * forwards}
-    expected_use = {'forward': per_forward['conv3x3'] * forwards,
-                    'data_grad': per_forward['conv3x3'] * n_steps}
-    sample = os.path.join(workdir, 'samples', f'iter_{train_steps}',
-                          'sample.np')
-    sample_shape = (list(np.load(sample).shape) if os.path.exists(sample)
-                    else None)
+  reset_counts()
+  torch.cuda.reset_peak_memory_stats()
+  torch.cuda.synchronize()
+  start = time.time()
+  state = run_lib.train(config, workdir, device='cuda', history=history)
+  torch.cuda.synchronize()
+  total_s = time.time() - start
+  peak = torch.cuda.max_memory_allocated()
+  launches = {'conv3x3': k1.conv3x3.launches,
+              'groupnorm_act': k2.groupnorm_act.launches}
+  by_kernel = dict(k1.conv3x3.launches_by_kernel)
+  by_use = dict(k1.conv3x3.launches_by_use)
+  fired = collections.Counter(e for h in history for e in h['events'])
+  n_steps = len(history)
+  forwards = n_steps + fired['eval'] + fired['snapshot'] * steps
+  expected = {'conv3x3': per_forward['conv3x3'] * (forwards + n_steps),
+              'groupnorm_act': per_forward['groupnorm_act'] * forwards}
+  expected_use = {'forward': per_forward['conv3x3'] * forwards,
+                  'data_grad': per_forward['conv3x3'] * n_steps, 'jvp': 0}
+  sample = os.path.join(workdir, 'samples', f'iter_{train_steps}',
+                        'sample.np')
+  sample_shape = (list(np.load(sample).shape) if os.path.exists(sample)
+                  else None)
+  png = os.path.join(os.path.dirname(sample), 'sample.png')
+  sample_png = (os.path.exists(png)
+                and open(png, 'rb').read(8) == PNG_SIGNATURE)
 
-    # The parameters moved from the init; the EMA step on one leaf.
-    init = registry.create_model(config, device='cuda', seed=config.seed)
-    moved = sum(not torch.equal(p, state.params[n])
-                for n, p in init.named_parameters())
-    leaf = 'ResnetBlockDDPM_0.Conv3x3_0.Conv_0.kernel'
-    e_before = state.ema_params[leaf].clone()
-    decay = state_lib.ema_decay(state.step, state.ema_rate)
-    step_fn = losses.get_step_fn(
-        sde_lib.get_sde(config)[0], init, losses.get_optimizer(config),
-        train=True, reduce_mean=t.reduce_mean, continuous=True)
-    g = torch.Generator(device='cuda').manual_seed(seed)
-    size = config.data.image_size
-    batch = torch.rand((t.batch_size, size, size, config.data.num_channels),
-                       generator=g, device='cuda') * 2 - 1
-    state, _ = step_fn(state, batch, g)
-    want = e_before - (1 - decay) * (e_before - state.params[leaf].detach())
-    ema_err = rel_err(state.ema_params[leaf], want)[1]
-    # One steady step under the profiler.
-    step_fn(state, batch, g)
-    profile_out, _ = profiled('train step (batch 128, bf16)',
-                              lambda: step_fn(state, batch, g))
-    del init, state
+  # The parameters moved from the init; the EMA step on one leaf.
+  init = registry.create_model(config, device='cuda', seed=config.seed)
+  moved = sum(not torch.equal(p, state.params[n])
+              for n, p in init.named_parameters())
+  leaf = 'ResnetBlockDDPM_0.Conv3x3_0.Conv_0.kernel'
+  e_before = state.ema_params[leaf].clone()
+  decay = state_lib.ema_decay(state.step, state.ema_rate)
+  step_fn = losses.get_step_fn(
+      sde_lib.get_sde(config)[0], init, losses.get_optimizer(config),
+      train=True, reduce_mean=t.reduce_mean, continuous=True)
+  g = torch.Generator(device='cuda').manual_seed(seed)
+  size = config.data.image_size
+  batch = torch.rand((t.batch_size, size, size, config.data.num_channels),
+                     generator=g, device='cuda') * 2 - 1
+  state, _ = step_fn(state, batch, g)
+  want = e_before - (1 - decay) * (e_before - state.params[leaf].detach())
+  ema_err = rel_err(state.ema_params[leaf], want)[1]
+  # One steady step under the profiler.
+  step_fn(state, batch, g)
+  profile_out, _ = profiled('train step (batch 128, bf16)',
+                            lambda: step_fn(state, batch, g))
+  del init, state
 
-    t.n_iters = train_steps + 4
-    t.snapshot_sampling = False
-    resumed_history = []
-    resumed = run_lib.train(config, workdir, device='cuda',
-                            history=resumed_history)
-    resumed_steps = [h['step'] for h in resumed_history]
-    resumed_final = resumed.step
-    del resumed
+  t.n_iters = train_steps + 4
+  t.snapshot_sampling = False
+  resumed_history = []
+  resumed = run_lib.train(config, workdir, device='cuda',
+                          history=resumed_history)
+  resumed_steps = [h['step'] for h in resumed_history]
+  resumed_final = resumed.step
+  del resumed
 
   # The host's share: one batch assembled by the loader (the synthetic
   # CIFAR-10 stand-in), as every step does before its update.
@@ -1082,6 +1108,7 @@ def train_phase(steps, train_steps, per_forward, seed):
       expected_launches=expected, conv3x3_by_kernel=by_kernel,
       conv3x3_by_use=by_use, expected_by_use=expected_use,
       params_moved=moved, ema_rel_err=ema_err, sample_shape=sample_shape,
+      sample_png=sample_png,
       resumed_steps=resumed_steps, resumed_final_step=resumed_final,
       profile=profile_out)
   log(f'  {n_steps} steps in {total_s:.2f} s (events {dict(fired)}); steady '
@@ -1096,7 +1123,8 @@ def train_phase(steps, train_steps, per_forward, seed):
   log(f'  launches {launches} (expected {expected}), conv3x3 by kernel '
       f'{by_kernel}, by use {by_use} (expected {expected_use})')
   log(f'  parameters moved from the init: {moved} leaves; EMA step on '
-      f'{leaf}: rel {ema_err:.2e}; samples {sample_shape}; resumed at '
+      f'{leaf}: rel {ema_err:.2e}; samples {sample_shape} (PNG grid '
+      f'{sample_png}); resumed at '
       f'{resumed_steps[:1]} to step {resumed_final}')
   if not np.isfinite(losses_).all():
     failures.append('train: a loss is not finite')
@@ -1113,6 +1141,8 @@ def train_phase(steps, train_steps, per_forward, seed):
     failures.append('train: no parameter moved')
   if not ema_err <= 1e-6:
     failures.append(f'train: EMA step rel error {ema_err:.3e}')
+  if not sample_png:
+    failures.append('train: no snapshot sample.png')
   if sample_shape != [t.batch_size // 4, size, size,
                       config.data.num_channels]:
     failures.append(f'train: snapshot samples {sample_shape}')
@@ -2424,8 +2454,9 @@ def inverse_cli_phase(workdir):
 
 def reset_counts():
   """Every kernel's launch counts to 0."""
-  for kernel in (k1.conv3x3, k2.groupnorm_act, k3.correlation,
-                 k3.correlation_df1, k3.correlation_df2, k4.ns_step_fused):
+  for kernel in (k1.conv3x3, k2.groupnorm_act, k2.groupnorm_act_jvp,
+                 k3.correlation, k3.correlation_df1, k3.correlation_df2,
+                 k4.ns_step_fused):
     kernel.launches = 0
   for counts in (k1.conv3x3.launches_by_kernel, k1.conv3x3.launches_by_use,
                  k4.ns_step_fused.launches_by_kernel):
@@ -2590,6 +2621,389 @@ def ukf_profile_phase(seed):
   return out, failures
 
 
+# The eval phase's cuts (the whole script is to end within 1200 s):
+# eval.batch_size 256, two batches of the 512-image stand-in split (the
+# config's 1024 yields none); 128 samples, one round at N = 100.
+EVAL_BATCH = 256
+EVAL_SAMPLES = 128
+EVAL_SAMPLE_STEPS = 100
+# bpd of one batch of 8, kernel path against plain path, in f32, at
+# rtol = atol = 1e-3 (about a third of the evaluations of the config's
+# 1e-5):
+# the Dormand-Prince steps may part by ulps (their NFE need not be
+# equal), so each image's bpd is held to 1e-3 relative.
+BPD_F32_TOL = 1e-3
+BPD_F32_ODE_TOL = 1e-3
+
+
+def jvp_timings(dtype, kernel, plain, library):
+  """``timings`` in bf16, the main path's dtype, the kernel table's; in
+  f32 the forward-mode rows are checked, not timed (NaN)."""
+  if dtype == torch.bfloat16:
+    return timings(kernel, plain, library)
+  return dict.fromkeys(('ms', 'call_ms', 'plain_ms', 'library_ms'),
+                       float('nan'))
+
+
+def check_conv_jvp(shape, dtype, seed, batch=BATCH):
+  """K1's forward-mode term at the site (H, W, Cin, Cout): K1 launched on
+  the tangent dx, as the likelihood's JVP launches it (no bias), held
+  against ``torch.func.jvp`` of the port's conv (the tangent its rule
+  gave) and against the plain version on dx; timed beside the plain
+  version and ``torch.func.jvp`` of cuDNN ``F.conv2d`` (which computes the
+  primal too)."""
+  H, W, cin, cout = shape
+  g = torch.Generator(device='cuda').manual_seed(seed)
+  x = torch.randn((batch, H, W, cin), generator=g, device='cuda').to(dtype)
+  dx = torch.randn((batch, H, W, cin), generator=g, device='cuda').to(dtype)
+  w = (torch.randn((3, 3, cin, cout), generator=g, device='cuda') / (
+      9 * cin) ** 0.5).to(dtype)
+  b = 0.1 * torch.randn((cout,), generator=g, device='cuda')
+  with torch.no_grad():
+    _, got = torch.func.jvp(lambda a: k1.conv3x3(a, w, b), (x,), (dx,))
+    want = k1.conv3x3_plain(dx, w)
+    torch.cuda.synchronize()
+    abs_err, rel = rel_err(got, want)
+    x_lib, dx_lib = x.permute(0, 3, 1, 2), dx.permute(0, 3, 1, 2)
+    w_lib = w.permute(3, 2, 0, 1).contiguous(
+        memory_format=torch.channels_last)
+    b_lib = b.to(dtype)
+    row = dict(kernel=k1.kernel_for(dtype, cin, cout), **jvp_timings(
+        dtype, lambda: k1._conv(dx, w, None, 'jvp'),
+        lambda: k1.conv3x3_plain(dx, w),
+        lambda: torch.func.jvp(
+            lambda a: F.conv2d(a, w_lib, b_lib, padding=1), (x_lib,),
+            (dx_lib,))))
+  itemsize = x.element_size()
+  flops = 2 * 9 * batch * H * W * cin * cout
+  nbytes = (dx.numel() + w.numel() + batch * H * W * cout) * itemsize
+  row['bound_ms'], row['bound_by'] = bound(flops, nbytes, dtype)
+  row.update(max_abs_err=abs_err, rel_err=rel)
+  return row
+
+
+def check_norm_jvp(shape, dtype, seed, batch=BATCH):
+  """The K2 JVP kernel at the site (H, W, C, G), SiLU, a tangent on x:
+  ``torch.func.jvp`` through K2 (one K2 and one K2 JVP launch) held
+  against ``groupnorm_act_jvp_plain``; the kernel alone timed beside it
+  and ``torch.func.jvp`` of ``F.group_norm`` + ``F.silu`` (primal and
+  tangent).  ``on_chip`` is ``jvp_plan``'s (False: x and dx are read
+  again for the later passes)."""
+  H, W, C, G = shape
+  g = torch.Generator(device='cuda').manual_seed(seed)
+  x = (torch.randn((batch, H, W, C), generator=g, device='cuda') * 2 + 0.5
+       ).to(dtype)
+  dx = torch.randn((batch, H, W, C), generator=g, device='cuda').to(dtype)
+  scale = 1 + 0.1 * torch.randn((C,), generator=g, device='cuda')
+  bias = 0.1 * torch.randn((C,), generator=g, device='cuda')
+  with torch.no_grad():
+    _, got = torch.func.jvp(
+        lambda a: k2.groupnorm_act(a, scale, bias, G, 'silu'), (x,), (dx,))
+    want = k2.groupnorm_act_jvp_plain(x, dx, scale, bias, None, None, G,
+                                      'silu')
+    torch.cuda.synchronize()
+    abs_err, rel = rel_err(got, want)
+    x_lib, dx_lib = x.permute(0, 3, 1, 2), dx.permute(0, 3, 1, 2)
+    s_lib, b_lib = scale.to(dtype), bias.to(dtype)
+    row = jvp_timings(
+        dtype, lambda: k2.groupnorm_act_jvp(x, dx, scale, bias, None, None,
+                                            G, 'silu'),
+        lambda: k2.groupnorm_act_jvp_plain(x, dx, scale, bias, None, None, G,
+                                           'silu'),
+        lambda: torch.func.jvp(
+            lambda a: F.silu(F.group_norm(a, G, s_lib, b_lib, 1e-6)),
+            (x_lib,), (dx_lib,)))
+  row['on_chip'] = k2.jvp_plan(H, W, C, G, x.element_size())['on_chip']
+  n = x.numel()
+  nbytes = 3 * n * x.element_size() + 8 * C
+  row['bound_ms'], row['bound_by'] = bound(25 * n, nbytes, dtype)
+  row.update(max_abs_err=abs_err, rel_err=rel)
+  return row
+
+
+def eval_counts():
+  uses = k1.conv3x3.launches_by_use
+  return {'conv3x3': uses['forward'], 'conv3x3_jvp': uses['jvp'],
+          'conv3x3_data_grad': uses['data_grad'],
+          'groupnorm_act': k2.groupnorm_act.launches,
+          'groupnorm_act_jvp': k2.groupnorm_act_jvp.launches}
+
+
+def drift_div_fn_of(config, model, params=None, functorch=False):
+  """The likelihood's drift-and-divergence (one forward-mode pass) of
+  ``model`` under ``params`` (default its own), parameters detached; with
+  ``functorch``, the same by ``torch.func.jvp`` (the yardstick the
+  likelihood's ``forward_ad`` pass is timed against)."""
+  sde, _ = sde_lib.get_sde(config)
+  params = dict(model.named_parameters()) if params is None else params
+  score_fn = registry.get_score_fn(
+      sde, model, train=False, continuous=True,
+      params={k: v.detach() for k, v in params.items()})
+  rsde = sde.reverse(score_fn, probability_flow=True)
+  if not functorch:
+    return likelihood.get_drift_div_fn(lambda a, t: rsde.sde(a, t)[0])
+
+  def drift_div(x, t, eps):
+    drift, tangent = torch.func.jvp(lambda a: rsde.sde(a, t)[0], (x,),
+                                    (eps,))
+    return drift, (tangent * eps).reshape(x.shape[0], -1).sum(-1)
+  return drift_div
+
+
+def rademacher(shape, seed):
+  g = torch.Generator(device='cuda').manual_seed(seed)
+  return torch.randint(0, 2, shape, generator=g, device='cuda').float() * 2 - 1
+
+
+def drift_div_phase(per_forward, seed):
+  """One drift-plus-divergence evaluation of the likelihood at the
+  flagship's full width, batch 8, every parameter randomised, kernel path
+  against plain path on the same x, t and probe, in f32 (TF32 off) and
+  bf16, with the launches counted over it.  Returns (report, per-evaluation
+  launches of the bf16 kernel path, failures)."""
+  out, failures, per_eval = {}, [], None
+  want = {'conv3x3': per_forward['conv3x3'],
+          'conv3x3_jvp': per_forward['conv3x3'], 'conv3x3_data_grad': 0,
+          'groupnorm_act': per_forward['groupnorm_act'],
+          'groupnorm_act_jvp': per_forward['groupnorm_act']}
+  for dtype in (torch.float32, torch.bfloat16):
+    name = str(dtype).split('.')[-1]
+    config, kernel_model = flagship(dtype, True, seed)
+    _, plain_model = flagship(dtype, False, seed)
+    x, _ = model_inputs(config, seed)
+    eps = rademacher(x.shape, seed + 1)
+    t = torch.full((BATCH,), 0.5, device='cuda')
+    results = {}
+    with torch.no_grad():
+      for path, model in (('kernel', kernel_model), ('plain', plain_model)):
+        fn = drift_div_fn_of(config, model)
+        reset_counts()
+        drift, div = fn(x, t, eps)
+        torch.cuda.synchronize()
+        results[path] = (drift, div, eval_counts(),
+                         time_ms(lambda: fn(x, t, eps), 3, 1))
+    (k_drift, k_div, k_counts, k_ms), (p_drift, p_div, p_counts, p_ms) = (
+        results['kernel'], results['plain'])
+    errs = {'drift': rel_err(k_drift, p_drift)[1],
+            'div': rel_err(k_div, p_div)[1]}
+    finite = bool(torch.isfinite(k_drift).all() and torch.isfinite(k_div)
+                  .all())
+    out[name] = dict(rel_err=errs, tol=TOL[dtype], kernel_counts=k_counts,
+                     plain_counts=p_counts, kernel_eval_ms=k_ms,
+                     plain_eval_ms=p_ms)
+    log(f'  drift + divergence {name}, batch {BATCH}: drift rel '
+        f'{errs["drift"]:.3e}, divergence rel {errs["div"]:.3e} (limit '
+        f'{TOL[dtype]}); kernel path {k_ms:.2f} ms, plain path {p_ms:.2f} '
+        f'ms an evaluation (host clock); launches {k_counts}')
+    if not (finite and max(errs.values()) <= TOL[dtype]):
+      failures.append(f'drift + divergence {name}: {errs}, finite {finite}')
+    if k_counts != want:
+      failures.append(f'drift + divergence {name}: launches {k_counts}, '
+                      f'expected {want}')
+    if any(p_counts.values()):
+      failures.append(f'drift + divergence {name}: the plain path launched '
+                      f'{p_counts}')
+    if dtype == torch.bfloat16:
+      per_eval = k_counts
+    del kernel_model, plain_model, results
+    torch.cuda.empty_cache()
+  return out, per_eval, failures
+
+
+def eval_config():
+  """The flagship config for ``run_lib.evaluate`` on the train phase's
+  checkpoint, with this script's cuts: ``eval.batch_size`` ``EVAL_BATCH``
+  (the config's 1024 yields no batch of the 512-image stand-in split),
+  ``bpd_dataset`` 'train' (one repeat over the batches), and
+  ``num_samples`` 128 at N = 100 (``model.num_scales`` moves only the
+  sampler: the continuous model's labels are t * 999)."""
+  config = configs.get_config(CONFIG)
+  ev = config.eval
+  ev.begin_ckpt = ev.end_ckpt = 1
+  ev.batch_size = EVAL_BATCH
+  ev.enable_loss = ev.enable_bpd = ev.enable_sampling = True
+  ev.bpd_dataset = 'train'
+  ev.num_samples = EVAL_SAMPLES
+  config.model.num_scales = EVAL_SAMPLE_STEPS
+  return config
+
+
+def eval_phase(train_dir, per_forward, seed):
+  """``run_lib.evaluate`` (loss, bpd, samples and FID/KID/IS) on the
+  checkpoint that the train phase wrote, bf16, with the launch counts set
+  to 0 before and read after; one bpd evaluation at ``EVAL_BATCH`` under the
+  profiler; one batch of 8's bpd kernel path against plain path in f32.
+  Returns (report, failures)."""
+  config = eval_config()
+  failures, history = [], []
+  reset_counts()
+  torch.cuda.reset_peak_memory_stats()
+  torch.cuda.synchronize()
+  start = time.time()
+  results = run_lib.evaluate(config, train_dir, 'eval', device='cuda',
+                             history=history)
+  torch.cuda.synchronize()
+  total_s = time.time() - start
+  peak = torch.cuda.max_memory_allocated()
+  counts = eval_counts()
+  eval_dir = os.path.join(train_dir, 'eval')
+  files = sorted(os.path.relpath(os.path.join(d, f), eval_dir)
+                 for d, _, fs in os.walk(eval_dir) for f in fs)
+  bpd_runs = [h for h in history if h['kind'] == 'bpd']
+  sample_runs = [h for h in history if h['kind'] == 'sample']
+  nfe = sum(h['nfe'] for h in bpd_runs)
+  loss_batches = 512 // EVAL_BATCH
+  forwards = nfe + loss_batches + len(sample_runs) * EVAL_SAMPLE_STEPS
+  want = {'conv3x3': per_forward['conv3x3'] * forwards,
+          'conv3x3_jvp': per_forward['conv3x3'] * nfe,
+          'conv3x3_data_grad': 0,
+          'groupnorm_act': per_forward['groupnorm_act'] * forwards,
+          'groupnorm_act_jvp': per_forward['groupnorm_act'] * nfe}
+  metrics = {k: results.get(f'ckpt_1_{k}') for k in (
+      'loss', 'bpd', 'fid', 'kid', 'inception_score')}
+  report = dict(
+      seconds=total_s, results=results, max_memory_allocated=peak,
+      launches=counts, expected_launches=want, files=files,
+      bpd_batches=[dict(nfe=h['nfe'], seconds=h['seconds'])
+                   for h in bpd_runs],
+      sample_rounds=[dict(nfe=h['nfe'], seconds=h['seconds'])
+                     for h in sample_runs])
+  log(f'  evaluate: {total_s:.1f} s; loss {metrics["loss"]}, bpd '
+      f'{metrics["bpd"]}, FID {metrics["fid"]}, KID {metrics["kid"]}, IS '
+      f'{metrics["inception_score"]} (features: '
+      f'{results.get("feature_source")}); peak memory '
+      f'{peak / 2**30:.2f} GiB')
+  log(f'  bpd batches (batch {EVAL_BATCH}): ' + ', '.join(
+      f'nfe {h["nfe"]} in {h["seconds"]:.2f} s ('
+      f'{1e3 * h["seconds"] / h["nfe"]:.1f} ms an evaluation)'
+      for h in bpd_runs))
+  log(f'  sampling rounds (batch {EVAL_BATCH}, N = {EVAL_SAMPLE_STEPS}): '
+      + ', '.join(
+      f'{h["seconds"]:.2f} s' for h in sample_runs))
+  log(f'  launches {counts} (expected {want}); files {files}')
+  if not all(v is not None and np.isfinite(v) for v in metrics.values()):
+    failures.append(f'evaluate: results {results}')
+  if counts != want:
+    failures.append(f'evaluate: launches {counts}, expected {want}')
+  if len(bpd_runs) != loss_batches or len(sample_runs) != (
+      EVAL_SAMPLES // EVAL_BATCH + 1):
+    failures.append(f'evaluate: {len(bpd_runs)} bpd batches, '
+                    f'{len(sample_runs)} sampling rounds')
+  for name in ('ckpt_1_loss.npz', 'train_ckpt_1_bpd.npz', 'report_1.npz',
+               os.path.join('ckpt_1', 'samples_0.npz')):
+    if name not in files:
+      failures.append(f'evaluate: {name} not written ({files})')
+
+  # One bpd evaluation of the checkpoint at EVAL_BATCH, profiled.
+  template, model = run_lib._template(config, torch.device('cuda'), seed)
+  state = ckpt_lib.restore_checkpoint(
+      os.path.join(train_dir, 'checkpoints', 'checkpoint_1'), template)
+  _, eval_ds = get_dataset(config, evaluation=True)
+  batch = torch.from_numpy(get_data_scaler(config)(
+      next(iter(eval_ds))[0])).cuda()
+  fn = drift_div_fn_of(config, model, state.ema_params)
+  eps = rademacher(batch.shape, seed)
+  t = torch.full((EVAL_BATCH,), 0.5, device='cuda')
+  with torch.no_grad():
+    fn(batch, t, eps)
+    report['profile'], (drift, div) = profiled(
+        f'bpd evaluation (drift + divergence, batch {EVAL_BATCH}, bf16)',
+        lambda: fn(batch, t, eps))
+    # The same evaluation by torch.func.jvp, in turns with forward_ad.
+    by_func = drift_div_fn_of(config, model, state.ema_params,
+                              functorch=True)
+    f_drift, f_div = by_func(batch, t, eps)
+    ms = {'forward_ad': [], 'func_jvp': []}
+    for _ in range(2):
+      ms['forward_ad'].append(time_ms(lambda: fn(batch, t, eps), 3, 1))
+      ms['func_jvp'].append(time_ms(lambda: by_func(batch, t, eps), 3, 1))
+  report['evaluation_ms'] = ms
+  same = (rel_err(f_drift, drift)[1], rel_err(f_div, div)[1])
+  log(f'  one evaluation at batch {EVAL_BATCH} (host clock, in turns): '
+      f'forward_ad {ms["forward_ad"]} ms, torch.func.jvp {ms["func_jvp"]} '
+      f'ms; the two agree to {same[0]:.2e} (drift), {same[1]:.2e} '
+      '(divergence)')
+  if not max(same) <= TOL[torch.bfloat16]:
+    failures.append(f'forward_ad vs torch.func.jvp: {same}')
+
+  # bpd of 8 images, kernel path against plain path, in f32.
+  bpds = {}
+  for kernels in (True, False):
+    f32 = eval_config()
+    f32.tpu.compute_dtype = 'float32'
+    model = registry.create_model(f32, device='cuda', seed=seed,
+                                  kernels=kernels)
+    fn = likelihood.get_likelihood_fn(
+        sde_lib.get_sde(f32)[0], model, get_data_inverse_scaler(f32),
+        rtol=BPD_F32_ODE_TOL, atol=BPD_F32_ODE_TOL)
+    start = time.time()
+    bpd, _, nfe = fn(state.ema_params, batch[:8],
+                     torch.Generator(device='cuda').manual_seed(seed))
+    torch.cuda.synchronize()
+    bpds[kernels] = (bpd, nfe, time.time() - start)
+  rel = float(((bpds[True][0] - bpds[False][0]).abs()
+               / bpds[False][0].abs()).max())
+  report['f32_bpd'] = dict(kernel=bpds[True][0].tolist(),
+                           plain=bpds[False][0].tolist(),
+                           kernel_nfe=bpds[True][1], plain_nfe=bpds[False][1],
+                           kernel_s=bpds[True][2], plain_s=bpds[False][2],
+                           max_rel=rel, tol=BPD_F32_TOL)
+  log(f'  bpd of 8 images in f32 (rtol = atol = {BPD_F32_ODE_TOL}): kernel '
+      f'path nfe {bpds[True][1]} '
+      f'({bpds[True][2]:.1f} s), plain path nfe {bpds[False][1]} '
+      f'({bpds[False][2]:.1f} s); max rel difference {rel:.3e} (limit '
+      f'{BPD_F32_TOL})')
+  if not rel <= BPD_F32_TOL:
+    failures.append(f'f32 bpd kernel vs plain: {report["f32_bpd"]}')
+  return report, failures
+
+
+def eval_cli_phase(train_dir, workdir):
+  """``python -m b_pinn_kalman_filter_tpu_torch --mode sample --ckptdir
+  <the train phase's checkpoint>`` (batch 8, N = 100) and ``--mode eval``
+  (the loss alone, the config's default, of ``checkpoint_1`` at
+  ``eval.batch_size`` 128) as subprocesses.  Returns (report,
+  failures)."""
+  root = os.path.dirname(os.path.abspath(__file__))
+  config_file = os.path.join(root, 'b_pinn_kalman_filter_tpu_torch',
+                             'configs', *CONFIG.split('/')) + '.py'
+  ckpt = os.path.join(train_dir, 'checkpoints', 'checkpoint_1')
+  runs = {
+      'sample': ['--workdir', workdir, '--ckptdir', ckpt,
+                 f'--config.training.batch_size={BATCH}',
+                 f'--config.model.num_scales={EVAL_SAMPLE_STEPS}'],
+      'eval': ['--workdir', train_dir, '--eval_folder', 'cli_eval',
+               '--config.eval.begin_ckpt=1', '--config.eval.end_ckpt=1',
+               f'--config.eval.batch_size={EVAL_BATCH}']}
+  report, failures = {}, []
+  for mode, args in runs.items():
+    start = time.time()
+    proc = subprocess.run(
+        [sys.executable, '-m', 'b_pinn_kalman_filter_tpu_torch', '--config',
+         config_file, '--mode', mode, *args], cwd=root, capture_output=True,
+        text=True, timeout=600)
+    seconds = time.time() - start
+    if mode == 'sample':
+      png = os.path.join(workdir, 'sample.png')
+      ok = (os.path.exists(png)
+            and open(png, 'rb').read(8) == PNG_SIGNATURE)
+      detail = {'sample.png': ok}
+    else:
+      path = os.path.join(train_dir, 'cli_eval', 'ckpt_1_loss.npz')
+      loss = (float(np.load(path)['mean_loss']) if os.path.exists(path)
+              else None)
+      ok = loss is not None and np.isfinite(loss)
+      detail = {'mean_loss': loss}
+    report[mode] = dict(returncode=proc.returncode, seconds=seconds,
+                        **detail)
+    log(f'  --mode {mode}: exit {proc.returncode} in {seconds:.1f} s, '
+        f'{detail}')
+    if proc.returncode != 0 or not ok:
+      failures.append(f'CLI {mode}: {report[mode]}; stderr '
+                      f'{proc.stderr[-2000:]}')
+  return report, failures
+
+
 def forward_phase(seed):
   """Full-width forward, every parameter randomised: kernels vs plain."""
   out, failures = {}, []
@@ -2633,18 +3047,18 @@ def main():
   parser.add_argument('--requests', type=int, default=2)
   parser.add_argument('--cycles', type=int, default=10,
                       help='ukf filter cycles (default 10, as ukf_lib.run)')
-  parser.add_argument('--train-steps', type=int, default=40,
-                      help='train steps after step 0 (default 40; even)')
-  parser.add_argument('--prelim-steps', type=int, default=40,
-                      help='PINN prelim steps after step 0 (default 40; '
+  parser.add_argument('--train-steps', type=int, default=20,
+                      help='train steps after step 0 (default 20; even)')
+  parser.add_argument('--prelim-steps', type=int, default=20,
+                      help='PINN prelim steps after step 0 (default 20; '
                       'even)')
-  parser.add_argument('--pinn-steps', type=int, default=20,
+  parser.add_argument('--pinn-steps', type=int, default=6,
                       help='PINN phase-2 steps after its first (default '
-                      '20; even)')
-  parser.add_argument('--bpinn-steps', type=int, default=20,
-                      help='B-PINN steps after step 0 (default 20; even)')
-  parser.add_argument('--fixed-steps', type=int, default=50,
-                      help='DPS fixed-solver steps (default 50 of the '
+                      '6; even)')
+  parser.add_argument('--bpinn-steps', type=int, default=10,
+                      help='B-PINN steps after step 0 (default 10; even)')
+  parser.add_argument('--fixed-steps', type=int, default=25,
+                      help='DPS fixed-solver steps (default 25 of the '
                       'reference\'s 5000)')
   parser.add_argument('--seed', type=int, default=0)
   parser.add_argument('--out', default=None,
@@ -2770,11 +3184,15 @@ def main():
   failures += f8
   report['kernels']['conv3x3_data_grad'] = dgrad_rows
   report['per_train_step_bf16'] = {'conv3x3_data_grad': dgrad_total}
+  snapshot_steps = min(steps, SNAPSHOT_STEPS)
   log(f'[train: run_lib.train, {CONFIG}, batch {train_batch}, bf16, steps '
-      f'0..{args.train_steps}, snapshot sampling at N={steps}; then a '
-      f'resume]')
+      f'0..{args.train_steps}, snapshot sampling at N={snapshot_steps}; '
+      f'then a resume]')
+  # The train run's workdir: the eval phase evaluates its checkpoint.
+  train_tmp = tempfile.TemporaryDirectory(prefix='chip_smoke_train_')
   report['train'], train_launches, f9 = train_phase(
-      steps, args.train_steps, per_forward, args.seed)
+      snapshot_steps, args.train_steps, per_forward, args.seed,
+      train_tmp.name)
   failures += f9
 
   config = configs.get_config(UKF_CONFIG)
@@ -2895,6 +3313,34 @@ def main():
   with tempfile.TemporaryDirectory() as tmp:
     report['inverse_cli'], f23 = inverse_cli_phase(os.path.join(tmp, 'cli'))
   failures += f23
+
+  log(f'[eval: K1 and K2 forward mode (K1 on the tangent, the K2 JVP '
+      f'kernel) vs plain at the main-path shapes, batch {BATCH}, f32 and '
+      f'bf16]')
+  jvp_conv_rows, jvp_conv_total, jvp_conv_more, f24 = kernel_phase(
+      'conv3x3 jvp', conv_sites, check_conv_jvp, args.seed)
+  jvp_norm_rows, jvp_norm_total, jvp_norm_more, f25 = kernel_phase(
+      'groupnorm_act jvp', norm_sites, check_norm_jvp, args.seed)
+  failures += f24 + f25
+  report['kernels'].update(conv3x3_jvp=jvp_conv_rows,
+                           groupnorm_act_jvp=jvp_norm_rows)
+  log(f'[eval: one drift + divergence evaluation of the likelihood, kernel '
+      f'path vs plain path, batch {BATCH}, f32 and bf16]')
+  report['drift_div'], per_eval_bpd, f26 = drift_div_phase(per_forward,
+                                                           args.seed)
+  failures += f26
+  log(f'[eval: run_lib.evaluate on the train phase\'s checkpoint_1, bf16: '
+      f'loss, bpd (batch {EVAL_BATCH}, bpd_dataset train), '
+      f'{EVAL_SAMPLES} samples at N={EVAL_SAMPLE_STEPS} and FID/KID/IS]')
+  report['eval'], f27 = eval_phase(train_tmp.name, per_forward, args.seed)
+  failures += f27
+  log('[eval: the CLI, --mode sample and --mode eval]')
+  with tempfile.TemporaryDirectory() as tmp:
+    report['eval_cli'], f28 = eval_cli_phase(train_tmp.name,
+                                             os.path.join(tmp, 'sample'))
+  failures += f28
+  train_tmp.cleanup()
+  eval_launches = report['eval']['launches']
   dps_launches = report['inverse']['dps_dpm']['launches']
 
   def dps_keys(total, launches_key):
@@ -2954,6 +3400,15 @@ def main():
            reread_f32_64x64x128={k: reread_row.get(k) for k in (
                'ms', 'plain_ms', 'library_ms', 'bound_ms', 'bound_by',
                'rel_err')}),
+      dict(entry('conv3x3_jvp', 'conv3x3_wgmma.cu', 'winograd_pallas.py:159',
+                 eval_launches['conv3x3_jvp'],
+                 dict(jvp_conv_total, **jvp_conv_more)),
+           bpd_eval_launches=(per_eval_bpd or {}).get('conv3x3_jvp')),
+      dict(entry('groupnorm_act_jvp', 'groupnorm_jvp.cu',
+                 'groupnorm_pallas.py:118',
+                 eval_launches['groupnorm_act_jvp'],
+                 dict(jvp_norm_total, **jvp_norm_more)),
+           bpd_eval_launches=(per_eval_bpd or {}).get('groupnorm_act_jvp')),
       entry('groupnorm_act_pergroup', 'groupnorm_pergroup.cu',
             'groupnorm_pallas.py:118', 0, norm_all, yardstick=True),
       dict(entry('correlation', 'correlation.cu', 'correlation_pallas.py:42',
@@ -3019,7 +3474,11 @@ def main():
       f'{prelim_batch_size}); dps_* keys: K1, K1 data gradient, K2 '
       f'launches a DPS guided evaluation and over the dpm request, and one '
       f'evaluation\'s device ms, plain ms, library ms and bound (batch '
-      f'{nc_batch}, bf16)')
+      f'{nc_batch}, bf16); conv3x3_jvp (K1 on the tangent) and '
+      f'groupnorm_act_jvp: device ms per U-Net forward\'s sites (bf16, '
+      f'batch 8), library ms torch.func.jvp of F.conv2d and of '
+      f'F.group_norm + F.silu (primal and tangent), launches over the '
+      f'evaluate run, bpd_eval_launches an evaluation')
   if failures:
     for failure in failures:
       print(f'FAILED: {failure}', file=sys.stderr)

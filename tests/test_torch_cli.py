@@ -1,7 +1,7 @@
 """The port's command line, ``python -m b_pinn_kalman_filter_tpu_torch``:
-the config file and its overrides, each mode's entry point, the modes not
-ported yet, and one ``--mode simulate`` and one ``--mode inverse`` run on
-the CPU in a subprocess."""
+the config file and its overrides, each mode's entry point, ``--mode
+sample`` and ``--mode eval`` on the CPU, and one ``--mode simulate`` and
+one ``--mode inverse`` run on the CPU in a subprocess."""
 
 import logging
 import os
@@ -24,6 +24,8 @@ PINN_CONFIG = os.path.join(ROOT, 'b_pinn_kalman_filter_tpu_torch', 'configs',
                            'pinn', 'pinn_pde.py')
 DPS_CONFIG = os.path.join(ROOT, 'b_pinn_kalman_filter_tpu_torch', 'configs',
                           'inverse', 'nc_ddpmpp_inpaint_dps.py')
+FLAGSHIP_CONFIG = os.path.join(ROOT, 'b_pinn_kalman_filter_tpu_torch',
+                               'configs', 'vp', 'cifar10_ddpmpp_continuous.py')
 
 
 def test_config_file_and_overrides():
@@ -55,6 +57,8 @@ def test_config_file_and_overrides():
     ('simulate', simulator, 'run'),
     ('ukf', ukf_lib, 'run'),
     ('inverse', inverse_lib, 'inverse'),
+    ('sample', run_lib, 'sample_from_checkpoint'),
+    ('eval', run_lib, 'evaluate'),
 ])
 def test_each_mode_calls_its_entry_point(tmp_path, monkeypatch, mode, module,
                                          name):
@@ -79,7 +83,8 @@ def test_each_mode_calls_its_entry_point(tmp_path, monkeypatch, mode, module,
   positional = args[1:] + ((kwargs['ckptdir'],) if mode == 'ukf' else ())
   want = {'train': (workdir,), 'train_pinn': (workdir,),
           'train_bpinn': (workdir, 'ck'), 'simulate': ('ck', workdir),
-          'ukf': (workdir, 'ck'), 'inverse': ('ck', workdir)}[mode]
+          'ukf': (workdir, 'ck'), 'inverse': ('ck', workdir),
+          'sample': ('ck', workdir), 'eval': (workdir, 'eval')}[mode]
   assert positional == want
   stdout = os.path.join(workdir, 'stdout.txt')
   if mode.startswith('train'):
@@ -89,11 +94,47 @@ def test_each_mode_calls_its_entry_point(tmp_path, monkeypatch, mode, module,
     assert not os.path.exists(stdout)
 
 
-@pytest.mark.parametrize('mode, item', [('sample', 'A.7'), ('eval', 'A.7')])
-def test_unported_modes_name_their_roadmap_item(tmp_path, mode, item):
-  with pytest.raises(NotImplementedError, match=f'ROADMAP.md {item}'):
-    cli.main(['--config', PINN_CONFIG, '--workdir', str(tmp_path),
-              '--mode', mode, '--device', 'cpu'])
+@pytest.fixture(scope='module')
+def flagship_run(tmp_path_factory):
+  """The flagship config cut to the MLP score model at 4x4 (its overrides
+  as the CLI takes them), and a workdir holding ``checkpoint_1`` of a
+  two-step ``run_lib.train``."""
+  overrides = ['--config.model.name=mlp', '--config.model.scale_by_sigma=False',
+               '--config.data.image_size=4', '--config.model.num_scales=3',
+               '--config.tpu.compute_dtype=float32',
+               '--config.training.batch_size=4', '--config.training.n_iters=2',
+               '--config.training.snapshot_freq=2',
+               '--config.training.snapshot_sampling=False',
+               '--config.sampling.corrector=none',
+               '--config.eval.begin_ckpt=1', '--config.eval.end_ckpt=1',
+               '--config.eval.batch_size=256']
+  config = cli.load_config(FLAGSHIP_CONFIG)
+  cli.apply_overrides(config, [o[len(cli.OVERRIDE):] for o in overrides])
+  workdir = tmp_path_factory.mktemp('flagship')
+  run_lib.train(config, str(workdir), device='cpu')
+  return workdir, overrides
+
+
+@pytest.mark.parametrize('mode', ['sample', 'eval'])
+def test_sample_and_eval_modes_run_on_the_cpu(flagship_run, tmp_path, mode):
+  """``--mode sample --ckptdir <checkpoint>`` writes ``sample.png``;
+  ``--mode eval --eval_folder <name>`` writes the eval loss of the
+  checkpoints under ``<workdir>/checkpoints`` (two batches of 256 of the
+  synthetic eval split)."""
+  workdir, overrides = flagship_run
+  ckpt = str(workdir / 'checkpoints' / 'checkpoint_1')
+  out = tmp_path / 'out' if mode == 'sample' else workdir
+  extra = (['--ckptdir', ckpt] if mode == 'sample'
+           else ['--eval_folder', 'cli_eval'])
+  assert cli.main(['--config', FLAGSHIP_CONFIG, '--workdir', str(out),
+                   '--mode', mode, '--device', 'cpu', *extra,
+                   *overrides]) == 0
+  if mode == 'sample':
+    assert (out / 'sample.png').read_bytes()[:8] == b'\x89PNG\r\n\x1a\n'
+  else:
+    loss = np.load(out / 'cli_eval' / 'ckpt_1_loss.npz')
+    assert loss['all_losses'].shape == (2,)
+    assert np.isfinite(float(loss['mean_loss']))
 
 
 def test_simulate_mode_runs_on_the_cpu(tmp_path):

@@ -145,11 +145,12 @@ def test_no_fallback_off_cpu():
 
 
 def test_forward_mode_on_the_cpu_matches_jax_jvp():
-  """A forward-mode tangent in x, the kernel and the bias takes the plain
-  version on the CPU and carries it: ``torch.func.jvp`` equals
+  """A forward-mode tangent in x, the kernel and the bias goes through
+  K1's forward-mode rule, the plain version on the CPU, and is carried: ``torch.func.jvp`` equals
   ``jax.jvp`` of the JAX direct conv (the function K1 computes).  On the
-  card the wrapper refuses such a tensor (tests/test_torch_kernels_cuda.py)
-  until the kernel has a forward-mode rule (ROADMAP.md B.3)."""
+  card the same rule launches K1 on each tangent
+  (tests/test_torch_kernels_cuda.py); tests/test_torch_jvp.py takes each
+  tangent alone."""
   primals = _inputs(1, 5, 6, 8, 16, seed=7)
   tangents = _inputs(1, 5, 6, 8, 16, seed=8)
   want_y, want_t = jax.jvp(wg._direct_conv, tuple(map(jnp.asarray, primals)),

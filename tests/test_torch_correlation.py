@@ -71,8 +71,9 @@ def test_zero_padding_outside_the_image():
 def test_wrapper_refuses_gradients_and_other_devices():
   """Gradients are taken now (the tests below); what the wrappers refuse
   is a tensor on a device without a kernel, and a forward-mode tangent
-  off the CPU (no forward-mode rule yet, ROADMAP.md B.3), which the
-  helper ``_build.tangents`` raises for on any device but the CPU."""
+  off the CPU (K3 and its backward have no forward-mode rule; K1 and K2
+  have), which the helper ``_build.tangents`` raises for on any device
+  but the CPU."""
   m = torch.empty((1, 4, 4, 3), device='meta')
   d = torch.empty((1, 4, 4, 49), device='meta')
   with pytest.raises(ValueError, match='no kernel for device'):
@@ -82,10 +83,10 @@ def test_wrapper_refuses_gradients_and_other_devices():
       fn(d, m)
   with torch.autograd.forward_ad.dual_level():
     dual = torch.autograd.forward_ad.make_dual(m, torch.empty_like(m))
-    with pytest.raises(NotImplementedError, match='B.3'):
+    with pytest.raises(NotImplementedError, match='forward-mode rule'):
       k3.correlation(dual, m)
-    with pytest.raises(NotImplementedError, match='B.3'):
-      _build.tangents('conv3x3', None, dual)
+    with pytest.raises(NotImplementedError, match='forward-mode rule'):
+      _build.tangents('correlation_df1', None, dual)
     assert _build.tangents('x', torch.zeros(2), None) is False
     cpu = torch.autograd.forward_ad.make_dual(torch.zeros(2), torch.ones(2))
     assert _build.tangents('x', cpu) is True

@@ -89,12 +89,12 @@ def test_backward_matches_jax_custom_vjp(act):
 
 
 def test_forward_mode_on_the_cpu_matches_jax_jvp():
-  """A forward-mode tangent in x, scale and bias takes the plain version on
-  the CPU and carries it: ``torch.func.jvp`` equals ``jax.jvp`` of the JAX
+  """A forward-mode tangent in x, scale and bias goes through K2's
+  forward-mode rule, the plain JVP on the CPU, and is carried: ``torch.func.jvp`` equals ``jax.jvp`` of the JAX
   reference GroupNorm+SiLU (what the Pallas kernel computes; the kernel's
-  own custom_vjp has no forward mode).  On the card the wrapper refuses
-  such a tensor (tests/test_torch_kernels_cuda.py) until the kernel has a
-  forward-mode rule (ROADMAP.md B.3)."""
+  own custom_vjp has no forward mode).  On the card the same rule launches
+  the K2 JVP kernel (tests/test_torch_kernels_cuda.py);
+  tests/test_torch_jvp.py takes each tangent alone and every activation."""
   from b_pinn_kalman_filter_tpu.ops.groupnorm_pallas import (
       _reference_groupnorm_act)
   primals = _inputs((2, 4, 4, 64), seed=3)

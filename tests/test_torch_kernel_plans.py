@@ -149,6 +149,32 @@ def test_groupnorm_plan_edges(shape, itemsize, want):
   assert plan['cluster'] <= H * W
 
 
+@pytest.mark.parametrize('hc', NORM_SHAPES)
+def test_groupnorm_jvp_plan_sums_as_k2_does(hc):
+  """The K2 JVP kernel takes K2's cluster, threads, vector width and
+  thread columns, so its mu and r are K2's; it keeps x and dx on chip
+  where both slices fit beside 10 C + 4 G floats and a plane of row sums
+  (in bf16 at every main-path site, the 32x32x384 one at 227,840 of
+  232,448 bytes), else it reads them again."""
+  H, C = hc
+  for itemsize in (2, 4):
+    k2_plan = k2.groupnorm_plan(H, H, C, 32, itemsize)
+    plan = k2.jvp_plan(H, H, C, 32, itemsize)
+    for key in ('cluster', 'threads', 'vec', 'q', 'slice_bytes'):
+      assert plan[key] == k2_plan[key]
+    rows = plan['threads'] // plan['q']
+    stat = 4 * ((rows * C + 10 * C + 4 * 32 + 3) // 4 * 4)
+    assert plan['on_chip'] == (stat + 2 * plan['slice_bytes']
+                               <= k2.SMEM_LIMIT)
+    assert plan['smem_bytes'] == stat + (2 * plan['slice_bytes']
+                                         if plan['on_chip'] else 0)
+    if itemsize == 2:
+      assert plan['on_chip']
+  if (H, C) == (32, 384):
+    assert k2.jvp_plan(H, H, C, 32, 2)['smem_bytes'] == 227840
+    assert not k2.jvp_plan(H, H, C, 32, 4)['on_chip']
+
+
 # (B, H, W, C) of the cost volume on the ukf path: 8 draws x batch 1.
 CORR_LEVELS = [(8, 32, 32, 16), (8, 16, 16, 32), (8, 8, 8, 64), (8, 4, 4, 96),
                (8, 2, 2, 128)]

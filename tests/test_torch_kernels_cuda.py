@@ -1,5 +1,5 @@
-"""The CUDA kernels (K1-K4, and K3's backward) against their plain versions,
-on the card.
+"""The CUDA kernels (K1-K4, K3's backward, and K1's and K2's forward-mode
+rules with the K2 JVP kernel) against their plain versions, on the card.
 
 Every test here carries the ``cuda`` marker and skips without a card.  The
 file imports nothing of JAX, so it also runs where JAX is not installed:
@@ -105,7 +105,8 @@ def test_conv3x3_backward_matches_plain(card, shape, dtype):
   args = [t.detach().requires_grad_() for t in (x, w, b)]
   got = torch.autograd.grad(k1.conv3x3(*args), args, dy)
   assert k1.conv3x3.launches_by_use == {
-      'forward': by_use['forward'] + 1, 'data_grad': by_use['data_grad'] + 1}
+      'forward': by_use['forward'] + 1, 'data_grad': by_use['data_grad'] + 1,
+      'jvp': by_use['jvp']}
   assert k1.conv3x3.launches_by_kernel == {
       k: n + 2 * (k == which) for k, n in by_kernel.items()}
   plain = [t.detach().requires_grad_() for t in (x, w, b)]
@@ -379,24 +380,144 @@ def test_correlation_vmap_of_grad_is_one_launch_each(card):
 
 
 def test_wrappers_refuse_forward_mode_tangents(card):
-  """K1, K2 and K3 have no forward-mode rule yet (ROADMAP.md B.3): a
-  tangent must not be dropped by a launch, so the wrappers raise."""
+  """K3 and its backward (B1, B2) have no forward-mode rule (no path takes
+  one): a tangent must not be dropped by a launch, so the wrappers raise.
+  K1 and K2 carry tangents (the tests below)."""
   fwd = torch.autograd.forward_ad
   x = torch.randn((1, 4, 4, 32), generator=card, device='cuda')
-  w = torch.randn((3, 3, 32, 32), generator=card, device='cuda')
-  s = torch.ones(32, device='cuda')
   with fwd.dual_level():
     dual = fwd.make_dual(x, torch.ones_like(x))
-    for call in (lambda: k1.conv3x3(dual, w),
-                 lambda: k1.conv3x3(x, fwd.make_dual(w, torch.ones_like(w))),
-                 lambda: k2.groupnorm_act(dual, s, s * 0),
-                 lambda: k3.correlation(dual, x),
+    for call in (lambda: k3.correlation(dual, x),
                  lambda: k3.correlation_df1(
+                     torch.zeros((1, 4, 4, 49), device='cuda'), dual),
+                 lambda: k3.correlation_df2(
                      torch.zeros((1, 4, 4, 49), device='cuda'), dual)):
-      with pytest.raises(NotImplementedError, match='B.3'):
+      with pytest.raises(NotImplementedError, match='forward-mode rule'):
         call()
-  with pytest.raises(NotImplementedError, match='B.3'):
+  with pytest.raises(NotImplementedError, match='forward-mode rule'):
     torch.func.jvp(lambda a: k3.correlation(a, x), (x,), (x,))
+
+
+# K1's and K2's sites in the flagship U-Net (batch 8, 32x32): K1 (H, W,
+# Cin, Cout) and K2 (H, W, C); K2's JVP takes its re-read branch at
+# 32x32x384 in f32 (x and dx do not both fit) and at (1, 64, 64, 512).
+JVP_CONV_SITES = [(8, 32, 32, 128, 128), (8, 32, 32, 384, 128),
+                  (8, 16, 16, 256, 256), (8, 8, 8, 512, 256),
+                  (8, 4, 4, 256, 256)]
+JVP_NORM_SITES = [(8, 32, 32, 128), (8, 32, 32, 384), (8, 16, 16, 256),
+                  (8, 8, 8, 512), (8, 4, 4, 256), (1, 64, 64, 512)]
+
+
+@pytest.mark.parametrize('dtype', DTYPES)
+@pytest.mark.parametrize('shape', JVP_CONV_SITES)
+def test_conv3x3_jvp_matches_plain(card, shape, dtype):
+  """``torch.func.jvp`` through K1 with a tangent on x (the likelihood's
+  case: one K1 launch on it, counted as 'jvp') and on all three inputs
+  (three terms), against the plain version's forward-mode AD."""
+  x, w, b = _conv_inputs(card, shape, dtype)
+  w = w.to(dtype)
+  dx = torch.randn(x.shape, generator=card, device='cuda').to(dtype)
+  dw = 0.1 * torch.randn(w.shape, generator=card, device='cuda').to(dtype)
+  db = torch.randn(b.shape, generator=card, device='cuda')
+  with torch.no_grad():
+    before = dict(k1.conv3x3.launches_by_use)
+    y, t = torch.func.jvp(lambda a: k1.conv3x3(a, w, b), (x,), (dx,))
+    assert k1.conv3x3.launches_by_use == dict(
+        before, forward=before['forward'] + 1, jvp=before['jvp'] + 1)
+    want_y, want_t = torch.func.jvp(lambda a: k1.conv3x3_plain(a, w, b),
+                                    (x,), (dx,))
+    assert t.dtype == dtype
+    assert _rel(y, want_y) <= TOL[dtype] and _rel(t, want_t) <= TOL[dtype]
+    _, t3 = torch.func.jvp(k1.conv3x3, (x, w, b), (dx, dw, db))
+    _, want3 = torch.func.jvp(k1.conv3x3_plain, (x, w, b), (dx, dw, db))
+    assert t3.dtype == dtype and _rel(t3, want3) <= TOL[dtype]
+
+
+@pytest.mark.parametrize('dtype', DTYPES)
+@pytest.mark.parametrize('act', ['silu', 'elu', 'none'])
+@pytest.mark.parametrize('shape', JVP_NORM_SITES)
+def test_groupnorm_act_jvp_matches_plain(card, shape, act, dtype):
+  """The K2 JVP kernel (one launch, beside K2's) against
+  ``groupnorm_act_jvp_plain`` and against the plain version's
+  forward-mode AD, with a tangent on x and on all three inputs; the
+  re-read branch where ``jvp_plan`` says so."""
+  C = shape[-1]
+  x = (torch.randn(shape, generator=card, device='cuda') * 2 + 3).to(dtype)
+  dx = torch.randn(shape, generator=card, device='cuda').to(dtype)
+  scale = 1 + 0.1 * torch.randn((C,), generator=card, device='cuda')
+  bias = 0.1 * torch.randn((C,), generator=card, device='cuda')
+  ds = torch.randn((C,), generator=card, device='cuda')
+  db = torch.randn((C,), generator=card, device='cuda')
+  plan = k2.jvp_plan(shape[1], shape[2], C, 32, x.element_size())
+  if shape == (1, 64, 64, 512) or (C == 384 and dtype == torch.float32):
+    assert not plan['on_chip']
+  with torch.no_grad():
+    n, nj = k2.groupnorm_act.launches, k2.groupnorm_act_jvp.launches
+    y, t = torch.func.jvp(lambda a: k2.groupnorm_act(a, scale, bias, 32, act),
+                          (x,), (dx,))
+    assert (k2.groupnorm_act.launches, k2.groupnorm_act_jvp.launches) == (
+        n + 1, nj + 1)
+    plain = k2.groupnorm_act_jvp_plain(x, dx, scale, bias, None, None, 32,
+                                       act)
+    _, want = torch.func.jvp(
+        lambda a: k2.groupnorm_act_plain(a, scale, bias, 32, act), (x,),
+        (dx,))
+    assert t.dtype == dtype
+    assert _rel(t, plain) <= TOL[dtype] and _rel(t, want) <= TOL[dtype]
+    assert torch.equal(y, k2.groupnorm_act(x, scale, bias, 32, act))
+    args = (x, scale, bias)
+    _, t3 = torch.func.jvp(
+        lambda *a: k2.groupnorm_act(*a, 32, act), args, (dx, ds, db))
+    _, want3 = torch.func.jvp(
+        lambda *a: k2.groupnorm_act_plain(*a, 32, act), args, (dx, ds, db))
+    assert _rel(t3, want3) <= TOL[dtype]
+    # The same bits every run (the cluster's sums in a fixed order).
+    again = k2.groupnorm_act_jvp(x, dx, scale, bias, None, None, 32, act)
+    assert torch.equal(again, t)
+
+
+def test_unet_drift_and_divergence_kernel_path_matches_plain_path(card):
+  """One probability-flow drift and Hutchinson divergence (one
+  forward-mode pass) of the flagship U-Net cut to one res block at
+  batch 2, bf16, every parameter randomised: within bf16's limit of the
+  plain path; launches one K1 forward and one K1 'jvp' a K1 site, one K2
+  and one K2 JVP a K2 site."""
+  from b_pinn_kalman_filter_tpu_torch import configs
+  from b_pinn_kalman_filter_tpu_torch.core import likelihood
+  from b_pinn_kalman_filter_tpu_torch.core import sde as sde_lib
+  from b_pinn_kalman_filter_tpu_torch.models import registry
+  out = {}
+  for kernels in (True, False):
+    config = configs.get_config('vp/cifar10_ddpmpp_continuous')
+    config.model.num_res_blocks = 1
+    model = registry.create_model(config, device='cuda', kernels=kernels)
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+      for p in model.parameters():
+        p.copy_(torch.randn(p.shape, generator=g) / (
+            p[..., 0].numel() ** 0.5 if p.ndim >= 2 else 10.0))
+    sde, _ = sde_lib.get_sde(config)
+    score_fn = registry.get_score_fn(sde, model, continuous=True, params={
+        k: v.detach() for k, v in model.named_parameters()})
+    rsde = sde.reverse(score_fn, probability_flow=True)
+    x = torch.randn((2, 32, 32, 3), generator=g).cuda()
+    eps = torch.randint(0, 2, x.shape, generator=g).cuda().float() * 2 - 1
+    k1.conv3x3.launches_by_use.update(forward=0, data_grad=0, jvp=0)
+    k2.groupnorm_act.launches = k2.groupnorm_act_jvp.launches = 0
+    with torch.no_grad():
+      out[kernels] = likelihood.get_drift_div_fn(
+          lambda a, t: rsde.sde(a, t)[0])(
+              x, torch.full((2,), 0.5, device='cuda'), eps)
+    uses = dict(k1.conv3x3.launches_by_use)
+    counts = (uses, k2.groupnorm_act.launches, k2.groupnorm_act_jvp.launches)
+    if kernels:
+      assert uses['forward'] == uses['jvp'] > 0 and uses['data_grad'] == 0
+      assert counts[1] == counts[2] > 0
+    else:
+      assert counts == ({'forward': 0, 'data_grad': 0, 'jvp': 0}, 0, 0)
+  for got, want in zip(out[True], out[False]):
+    assert torch.isfinite(got).all()
+    assert _rel(got, want) <= TOL[torch.bfloat16]
 
 
 def _prelim_setup(kernels):
@@ -640,7 +761,7 @@ def test_dps_guided_evaluation_kernel_path_matches_plain_path(card):
     score_fn = registry.get_score_fn(sde, model, continuous=True, params={
         k: v.detach() for k, v in model.named_parameters()})
     guidance = conditional_sampling.dps_guidance(sde, score_fn, y, op, 0.1)
-    k1.conv3x3.launches_by_use.update(forward=0, data_grad=0)
+    k1.conv3x3.launches_by_use.update(forward=0, data_grad=0, jvp=0)
     k2.groupnorm_act.launches = 0
     out[kernels] = guidance(x, torch.full((2,), 0.5, device='cuda'))
     counts = (dict(k1.conv3x3.launches_by_use), k2.groupnorm_act.launches)
@@ -648,7 +769,7 @@ def test_dps_guided_evaluation_kernel_path_matches_plain_path(card):
       assert counts[0]['forward'] == counts[0]['data_grad'] > 0
       assert counts[1] > 0
     else:
-      assert counts == ({'forward': 0, 'data_grad': 0}, 0)
+      assert counts == ({'forward': 0, 'data_grad': 0, 'jvp': 0}, 0)
   for got, want in zip(out[True], out[False]):
     assert torch.isfinite(got).all()
     assert _rel(got, want) <= TOL[torch.bfloat16]

@@ -80,24 +80,20 @@ def test_generator_draws_are_reproducible():
                                        ('predictor', 'ancestral_sampling'),
                                        ('corrector', 'langevin'),
                                        ('corrector', 'ald')])
-def test_unported_samplers_name_the_roadmap(kind, name):
-  """The four updates that once raised naming their ROADMAP.md item (the
-  name is kept from then) are ported and held against JAX in
-  tests/test_torch_ode.py: each name gives its update, and an unknown name
-  raises ``KeyError``."""
+def test_ported_updates_are_registered(kind, name):
+  """The four updates (held against JAX in tests/test_torch_ode.py): each
+  name gives its update, and an unknown name raises ``KeyError``."""
   getter = getattr(sampling, f'get_{kind}')
   assert getter(name) is getattr(sampling, f'{name}_{kind}')
   with pytest.raises(KeyError):
     getter(f'{name}_unknown')
 
 
-@pytest.mark.parametrize('method,item', [('ode', 'A.6'),
-                                         ('dpm_solver', 'A.4')])
-def test_unported_methods_name_the_roadmap(method, item):
-  """The ODE sampler (ROADMAP.md A.6) and DPM-Solver++ (A.4) once raised
-  naming their items (the name is kept from then); ``get_sampling_fn``
-  now builds them, and each samples the tiny DDPM (held against JAX on
-  the MLP in tests/test_torch_samplers.py)."""
+@pytest.mark.parametrize('method', ['ode', 'dpm_solver'])
+def test_ode_and_dpm_solver_methods_sample(method):
+  """``get_sampling_fn`` builds the ODE sampler and DPM-Solver++, and each
+  samples the tiny DDPM (held against JAX on the MLP in
+  tests/test_torch_samplers.py)."""
   _, config = port_parity.tiny_configs()
   config.sampling.method = method
   config.sampling.dpm_steps = 2
@@ -106,6 +102,6 @@ def test_unported_methods_name_the_roadmap(method, item):
   fn = sampling.get_sampling_fn(config, sde, model, SHAPE, lambda x: x, eps,
                                 device='cpu')
   samples, nfe = fn(generator=torch.Generator().manual_seed(0))
-  assert samples.shape == SHAPE and torch.isfinite(samples).all(), item
+  assert samples.shape == SHAPE and torch.isfinite(samples).all()
   # DPM-Solver: 2 steps and the denoising prediction; ODE: 1 + 6 a step.
-  assert nfe == 3 if method == 'dpm_solver' else (nfe - 1) % 6 == 0, item
+  assert nfe == 3 if method == 'dpm_solver' else (nfe - 1) % 6 == 0
