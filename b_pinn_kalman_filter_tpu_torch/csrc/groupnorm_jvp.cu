@@ -3,14 +3,13 @@
 //
 // Replaces no TPU kernel of its own: it is the forward-mode rule of the TPU
 // kernel `groupnorm_act` (b_pinn_kalman_filter_tpu/ops/groupnorm_pallas.py
-// :118), whose custom_vjp has no forward mode; the JAX package takes the
-// likelihood's JVP through XLA's GroupNorm (core/likelihood.py:23-31).  The
-// port's K2 always runs on the card, so its Function carries this rule.
+// :118, pallas_call :164), whose custom_vjp has no forward mode; the JAX
+// package takes the likelihood's JVP through XLA's GroupNorm
+// (core/likelihood.py:23-31).  The port's K2 always runs on the card, so
+// its Function carries this rule.
 //
-// Per (image, group) of n elements, with mu, r = 1/sqrt(var + eps) and
-// xh = (x - mu) r computed as csrc/groupnorm.cu computes them (same
-// cluster, threads, vector width and sums, in the same order, so mu and r
-// are K2's bits), m1 = mean(dx) and m2 = mean(xh dx):
+// Per (image, group) of n elements, with mu, r = 1/sqrt(var + eps),
+// xh = (x - mu) r, m1 = mean(dx) and m2 = mean(xh dx):
 //   dxh = r (dx - m1 - xh m2),  z = scale xh + bias,
 //   dz = scale dxh + dscale xh + dbias,  dy = act'(z) dz.
 // Per channel that is dz = A dx + Bc (x - mu) + Cc with A = r scale,
@@ -18,23 +17,39 @@
 // the Function's forward gave it by a K2 launch.
 //
 // What bounds it on an H100: bytes.  It reads x and dx and writes dy, about
-// 25 operations an element: 1.5 times K2's bytes, far below the card's
-// balance point.
+// 25 operations an element, far below the card's balance point.  At the
+// flagship's batch 8 a launch moves ~3 MB (~1 us at 3.35 TB/s), so there
+// the chain of dependent steps inside a block sets its time; at batch 256
+// the bytes do.
 //
-// Design: K2's layout, with dx beside x.
-// - A cluster of `cluster` blocks per image (grid (cluster, B)); block r
-//   owns pixels [r*rows, (r+1)*rows) x all C channels.  Threads read whole
-//   pixel rows, `vec` channels a load, as R rows x Q columns, and keep
-//   their sums per channel in registers.
-// - Pass 1 sums x and dx per channel; pass 2 sums (x - mu)^2 and
-//   (x - mu) dx.  Each per-channel sum goes through one plane of shared
-//   memory ([R][C], summed over R in a fixed order), then through
-//   distributed shared memory over the cluster's blocks in rank order: the
-//   same bits every run.
-// - Both slices stay in shared memory (input dtype) when they fit (`on_chip`,
-//   ops/groupnorm.py `jvp_plan`); else passes 2 and 3 read them from device
-//   memory again (mostly from L2).
-// - Pass 3 computes dy and stores it with the same vector width.
+// Design (ops/groupnorm.py `jvp_plan` sizes it):
+// - One statistics pass.  A thread keeps, per channel of its 16-byte
+//   vector, sums of x - K, (x - K)^2, dx and (x - K) dx, where the shift K
+//   is the group's first element of the image (pixel 0): every block of an
+//   image shifts by the same K, so the sums combine, and a shift inside the
+//   group's range keeps var = E[(x-K)^2] - E[x-K]^2 free of the
+//   cancellation an unshifted E[x^2] - mu^2 suffers.  So the statistics
+//   take one pass and one cluster exchange, not two of each.
+// - The slices stream in through the TMA: a block's pixels are one
+//   contiguous run of x and one of dx, cut into chunks of whole pixel rows,
+//   each chunk one bulk copy (`cp.async.bulk`) of x and one of dx into a
+//   ring stage with its own mbarrier.  All stages are in flight from the
+//   start, and threads sum each chunk as it lands.  Where the ring holds the
+//   whole slice (`stages == chunks`) the output pass reads it from shared
+//   memory; else the ring streams the slice again (mostly from L2).
+// - Blocks: up to 8 per image (a cluster), as few as keep a block's
+//   slices of x and dx in its ring with at least two blocks an SM (~113 KB
+//   each), and more where the grid is short of a wave (batch 8); one
+//   block's barriers and stores overlap another's loads.
+// - The per-thread sums go through one plane of shared memory ([2][R][C],
+//   two quantities at a time) and are reduced over its R rows by the
+//   threads that wrote them, in a fixed tree order; then per group, then
+//   over the cluster through distributed shared memory in rank order.
+//   Every sum runs in a fixed order, with no atomics: the same bits every
+//   run.
+// - The output pass computes dy per vector (SiLU's sigmoid by the fast
+//   __expf and __fdividef: with the precise ones the pass's instructions
+//   take about as long as its bytes) and stores it 16 bytes a thread.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -45,9 +60,10 @@ namespace cg = cooperative_groups;
 
 namespace {
 
+constexpr int THREADS = 256;
 constexpr int MAX_CLUSTER = 8;      // portable cluster size
+constexpr int MAX_STAGES = 32;      // one parity bit each in a uint32
 constexpr int SMEM_LIMIT = 232448;  // shared memory a block may use (H100)
-constexpr int UNROLL = 4;           // pixel rows a thread has in flight
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
@@ -67,302 +83,341 @@ struct alignas(sizeof(T) * VEC) Vec {
   T v[VEC];
 };
 
-// Floats before the slice copies: red [R][C] (one plane, reused), the
-// block's per-channel sums cs[4][C] (x, dx, (x-mu)^2, (x-mu) dx: each read
-// by the cluster's other blocks, so none is overwritten while they may read
-// it), the cluster's totals ctot[2][C], scale, bias, dscale, dbias, and the
-// group mu, r, m1, m2.  Rounded up to 4 floats so the copies are 16-byte
-// aligned.  ops/groupnorm.py `jvp_plan` counts the same.
-__host__ __device__ __forceinline__ int stat_floats(int R, int C, int G) {
-  return (R * C + 10 * C + 4 * G + 3) / 4 * 4;
+__host__ __device__ __forceinline__ int round_up(int n, int m) {
+  return (n + m - 1) / m * m;
 }
 
-// Sum red[i][c] over the R rows into out[c], in row order.
-template <int THREADS>
-__device__ __forceinline__ void sum_rows(const float* red, float* out, int R,
-                                         int C) {
-  for (int c = threadIdx.x; c < C; c += THREADS) {
-    float s = 0.f;
-    for (int i = 0; i < R; ++i) s += red[i * C + c];
-    out[c] = s;
-  }
+// Floats ahead of the mbarriers: the plane [2][R][C], the block's group
+// sums [4][G], the cluster's totals turned into (mu, r, m1, m2) [4][G]
+// and the groups' shifts [G].
+__host__ __device__ __forceinline__ int head_floats(int R, int C, int G) {
+  return 2 * R * C + 9 * G;
 }
 
-// act: 0 = none, 1 = silu, 2 = elu.
-template <typename T, int VEC, int THREADS>
-__global__ void __launch_bounds__(THREADS) groupnorm_act_jvp_kernel(
+// Shared memory ahead of the ring: those floats, then the stages'
+// mbarriers; ops/groupnorm.py `jvp_plan` counts the same.
+__host__ __device__ __forceinline__ int head_bytes(int R, int C, int G) {
+  return round_up(4 * head_floats(R, C, G), 128) +
+         round_up(8 * MAX_STAGES, 128);
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return unsigned(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+      smem_addr(bar)));
+}
+
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT_%=:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT_%=;\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// One bulk copy of `bytes` (a multiple of 16) from device memory into this
+// block's shared memory, completing on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// act: 0 = none, 1 = silu, 2 = elu.  Grid (cluster, B); block `rank` of an
+// image owns pixels [rank * rows, (rank + 1) * rows).  TMA (VEC > 1: pixel
+// rows of 16-byte multiples, 16-byte aligned tensors) streams the chunks;
+// else (VEC == 1) the threads copy them element by element.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(THREADS, 2) groupnorm_act_jvp_kernel(
     const T* __restrict__ x, const T* __restrict__ dx,
     const float* __restrict__ scale, const float* __restrict__ bias,
     const float* __restrict__ dscale, const float* __restrict__ dbias,
-    T* __restrict__ dy, int P, int C, int G, int act, float eps, int Q,
-    int on_chip) {
+    T* __restrict__ dy, int P, int C, int G, int act, float eps, int rows,
+    int chunk_rows, int stages) {
   using V = Vec<T, VEC>;
+  constexpr bool TMA = VEC > 1;
   cg::cluster_group cluster = cg::this_cluster();
   const int nblk = int(cluster.num_blocks());
   const int rank = int(cluster.block_rank());
-  const int R = THREADS / Q;
-  extern __shared__ float4 smem4[];
-  float* red = reinterpret_cast<float*>(smem4);
-  float* cs = red + R * C;          // [4][C]
-  float* ctot = cs + 4 * C;         // [2][C]
-  float* sscale = ctot + 2 * C;
-  float* sbias = sscale + C;
-  float* sdscale = sbias + C;
-  float* sdbias = sdscale + C;
-  float* gmean = sdbias + C;
-  float* grstd = gmean + G;
-  float* gm1 = grstd + G;
-  float* gm2 = gm1 + G;
-
-  const int rows = (P + nblk - 1) / nblk;
-  const int p0 = min(P, rank * rows);
-  const int np = min(P, p0 + rows) - p0;
-  const int tpp = C / VEC;                  // vectors per pixel
-  V* copy = reinterpret_cast<V*>(red + stat_floats(R, C, G));
-  V* dcopy = copy + int64_t(rows) * tpp;
-  const int64_t base = (int64_t(blockIdx.y) * P + p0) * C;
-  const V* xs = reinterpret_cast<const V*>(x + base);
-  const V* dxs = reinterpret_cast<const V*>(dx + base);
-  V* dys = reinterpret_cast<V*>(dy + base);
-  const int q = threadIdx.x % Q;
-  const int r = threadIdx.x / Q;
+  const int tid = threadIdx.x;
+  const int tpp = C / VEC;                  // vectors a pixel
+  const int Q = tpp < THREADS ? tpp : THREADS;
+  const int R = THREADS / Q;                // pixel rows a sweep
+  const int q = tid % Q;
+  const int r = tid / Q;
   const bool active = r < R;
   const int cg_size = C / G;
   const float count = float(P) * float(cg_size);
 
-  for (int c = threadIdx.x; c < C; c += THREADS) {
-    sscale[c] = scale[c];
-    sbias[c] = bias[c];
-    sdscale[c] = dscale ? dscale[c] : 0.f;
-    sdbias[c] = dbias ? dbias[c] : 0.f;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* plane = reinterpret_cast<float*>(smem);      // [2][R][C]
+  float* gsum = plane + 2 * R * C;                     // [4][G]
+  float* gstat = gsum + 4 * G;                         // mu, r, m1, m2
+  float* gshift = gstat + 4 * G;                       // [G]
+  uint64_t* bar = reinterpret_cast<uint64_t*>(
+      smem + round_up(4 * head_floats(R, C, G), 128));
+  unsigned char* ring = smem + head_bytes(R, C, G);
+  const int row_elems = C;
+  const int stage_bytes = round_up(chunk_rows * C * int(sizeof(T)), 128);
+
+  const int p0 = min(P, rank * rows);
+  const int np = min(P, p0 + rows) - p0;
+  const int nchunks = (np + chunk_rows - 1) / chunk_rows;
+  const bool on_chip = nchunks <= stages;
+  const int64_t image = int64_t(blockIdx.y) * P * C;
+  const T* xs = x + image + int64_t(p0) * C;
+  const T* dxs = dx + image + int64_t(p0) * C;
+  T* dys = dy + image + int64_t(p0) * C;
+
+  auto stage_x = [&](int s) {
+    return reinterpret_cast<T*>(ring + int64_t(2 * s) * stage_bytes);
+  };
+  auto stage_dx = [&](int s) {
+    return reinterpret_cast<T*>(ring + int64_t(2 * s + 1) * stage_bytes);
+  };
+  auto chunk_len = [&](int k) {
+    return min(chunk_rows, np - k * chunk_rows);
+  };
+  // Chunk k into stage k % stages: by one thread's two bulk copies (TMA),
+  // or by every thread (the caller then synchronises the block).
+  auto fill = [&](int k) {
+    const int s = k % stages;
+    const int64_t off = int64_t(k) * chunk_rows * row_elems;
+    const int n = chunk_len(k) * row_elems;
+    if (TMA) {
+      const unsigned bytes = unsigned(n * sizeof(T));
+      mbar_expect(&bar[s], 2 * bytes);
+      bulk_load(stage_x(s), xs + off, bytes, &bar[s]);
+      bulk_load(stage_dx(s), dxs + off, bytes, &bar[s]);
+    } else {
+      T* sx = stage_x(s);
+      T* sdx = stage_dx(s);
+      for (int e = tid; e < n; e += THREADS) {
+        sx[e] = xs[off + e];
+        sdx[e] = dxs[off + e];
+      }
+    }
+  };
+  unsigned phase = 0;   // parity of each stage's next completion
+  auto wait = [&](int k) {
+    if (TMA) {
+      const int s = k % stages;
+      mbar_wait(&bar[s], (phase >> s) & 1u);
+      phase ^= 1u << s;
+    }
+  };
+  // The first `stages` chunks into the ring, by one thread.
+  auto prefill = [&]() {
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    for (int k = 0; k < nchunks && k < stages; ++k) fill(k);
+  };
+  // Sweep chunks 0..nchunks-1 through the ring, calling body(k, stage x,
+  // stage dx) on each as it lands.  `loaded`: the ring already holds them
+  // all (the output pass of an on-chip slice); `prefilled`: the first
+  // stages are already on their way.
+  auto sweep = [&](bool loaded, bool prefilled, auto&& body) {
+    if (TMA && !loaded && !prefilled && tid == 0) prefill();
+    for (int k = 0; k < nchunks; ++k) {
+      const int s = k % stages;
+      if (!loaded) {
+        if (TMA) {
+          wait(k);
+        } else {
+          fill(k);
+          __syncthreads();
+        }
+      }
+      body(k, stage_x(s), stage_dx(s));
+      if (!loaded && (!TMA || k + stages < nchunks)) {
+        __syncthreads();   // every thread is done with stage s
+        if (TMA && tid == 0) {
+          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+          fill(k + stages);
+        }
+      }
+    }
+  };
+
+  // The slices' first chunks go out first; meanwhile the threads stage
+  // each group's shift, its element at pixel 0 of the image.
+  if (TMA && tid == 0) {
+    for (int s = 0; s < stages; ++s) mbar_init(&bar[s]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    prefill();
+  }
+  for (int g = tid; g < G; g += THREADS) {
+    gshift[g] = to_float(x[image + g * cg_size]);
+  }
+  __syncthreads();
+  float shift[VEC];
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) {
+    shift[j] = gshift[(active ? q * VEC + j : 0) / cg_size];
   }
 
-  // Pass 1: per-channel sums of x, as K2's pass 1 (and the on-chip copies
-  // of x and dx); then of dx.  One plane of shared memory takes each in
-  // turn.
-  if (active) {
-    for (int col = q; col < tpp; col += Q) {
-      float s[VEC];
+  // Statistics pass.
+  float s1[VEC], s2[VEC], t1[VEC], t2[VEC];
 #pragma unroll
-      for (int j = 0; j < VEC; ++j) s[j] = 0.f;
-      for (int row0 = r; row0 < np; row0 += UNROLL * R) {
-        V v[UNROLL], dv[UNROLL];
+  for (int j = 0; j < VEC; ++j) s1[j] = s2[j] = t1[j] = t2[j] = 0.f;
+  sweep(false, true, [&](int k, const T* sx, const T* sdx) {
+    if (!active) return;
+    const V* vx = reinterpret_cast<const V*>(sx);
+    const V* vdx = reinterpret_cast<const V*>(sdx);
+    const int n = chunk_len(k);
+    for (int row = r; row < n; row += R) {
+      const V a = vx[row * tpp + q];
+      const V b = vdx[row * tpp + q];
 #pragma unroll
-        for (int u = 0; u < UNROLL; ++u) {
-          const int row = row0 + u * R;
-          if (row < np) {
-            v[u] = xs[int64_t(row) * tpp + col];
-            if (on_chip) dv[u] = dxs[int64_t(row) * tpp + col];
-          }
-        }
-#pragma unroll
-        for (int u = 0; u < UNROLL; ++u) {
-          const int row = row0 + u * R;
-          if (row < np) {
-            if (on_chip) {
-              copy[int64_t(row) * tpp + col] = v[u];
-              dcopy[int64_t(row) * tpp + col] = dv[u];
-            }
-#pragma unroll
-            for (int j = 0; j < VEC; ++j) s[j] += to_float(v[u].v[j]);
-          }
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < VEC; ++j) red[r * C + col * VEC + j] = s[j];
-    }
-  }
-  __syncthreads();
-  sum_rows<THREADS>(red, cs, R, C);
-  __syncthreads();
-  if (active) {
-    for (int col = q; col < tpp; col += Q) {
-      float s[VEC];
-#pragma unroll
-      for (int j = 0; j < VEC; ++j) s[j] = 0.f;
-      for (int row = r; row < np; row += R) {
-        const int64_t e = int64_t(row) * tpp + col;
-        const V dv = on_chip ? dcopy[e] : dxs[e];
-#pragma unroll
-        for (int j = 0; j < VEC; ++j) s[j] += to_float(dv.v[j]);
-      }
-#pragma unroll
-      for (int j = 0; j < VEC; ++j) red[r * C + col * VEC + j] = s[j];
-    }
-  }
-  __syncthreads();
-  sum_rows<THREADS>(red, cs + C, R, C);
-  cluster.sync();
-  for (int c = threadIdx.x; c < C; c += THREADS) {
-    float a = 0.f, b = 0.f;
-#pragma unroll
-    for (int k = 0; k < MAX_CLUSTER; ++k) {   // in rank order
-      if (k < nblk) {
-        const float* remote = cluster.map_shared_rank(cs, k);
-        a += remote[c];
-        b += remote[C + c];
+      for (int j = 0; j < VEC; ++j) {
+        const float d = to_float(a.v[j]) - shift[j];
+        const float e = to_float(b.v[j]);
+        s1[j] += d;
+        s2[j] = fmaf(d, d, s2[j]);
+        t1[j] += e;
+        t2[j] = fmaf(d, e, t2[j]);
       }
     }
-    ctot[c] = a;
-    ctot[C + c] = b;
-  }
-  __syncthreads();
-  for (int g = threadIdx.x; g < G; g += THREADS) {
-    float a = 0.f, b = 0.f;
-    for (int c = g * cg_size; c < (g + 1) * cg_size; ++c) {
-      a += ctot[c];
-      b += ctot[C + c];
-    }
-    gmean[g] = a / count;
-    gm1[g] = b / count;
-  }
-  __syncthreads();
+  });
 
-  // Pass 2: per-channel sums of (x - mu)^2, as K2's pass 2; then of
-  // (x - mu) dx.
-  if (active) {
-    for (int col = q; col < tpp; col += Q) {
-      float m[VEC], s[VEC];
+  // Per-channel sums over the plane's R rows, then per group: two
+  // quantities a round.  The rows are summed by the threads that wrote
+  // them, in a fixed tree: at each level, row r takes in row r + half.
+  int top = 1;
+  while (top < R) top *= 2;
+  for (int round = 0; round < 2; ++round) {
+    __syncthreads();   // the plane is free
+    float* pa = plane + r * C + q * VEC;
+    float* pb = plane + (R + r) * C + q * VEC;
+    if (active) {
 #pragma unroll
       for (int j = 0; j < VEC; ++j) {
-        m[j] = gmean[(col * VEC + j) / cg_size];
-        s[j] = 0.f;
+        pa[j] = round ? t1[j] : s1[j];
+        pb[j] = round ? t2[j] : s2[j];
       }
-      for (int row0 = r; row0 < np; row0 += UNROLL * R) {
-        V v[UNROLL];
-#pragma unroll
-        for (int u = 0; u < UNROLL; ++u) {
-          const int row = row0 + u * R;
-          const int64_t e = int64_t(row) * tpp + col;
-          if (row < np) v[u] = on_chip ? copy[e] : xs[e];
-        }
-#pragma unroll
-        for (int u = 0; u < UNROLL; ++u) {
-          if (row0 + u * R < np) {
-#pragma unroll
-            for (int j = 0; j < VEC; ++j) {
-              const float d = to_float(v[u].v[j]) - m[j];
-              s[j] = fmaf(d, d, s[j]);
-            }
-          }
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < VEC; ++j) red[r * C + col * VEC + j] = s[j];
     }
-  }
-  __syncthreads();
-  sum_rows<THREADS>(red, cs + 2 * C, R, C);
-  __syncthreads();
-  if (active) {
-    for (int col = q; col < tpp; col += Q) {
-      float m[VEC], s[VEC];
-#pragma unroll
-      for (int j = 0; j < VEC; ++j) {
-        m[j] = gmean[(col * VEC + j) / cg_size];
-        s[j] = 0.f;
-      }
-      for (int row = r; row < np; row += R) {
-        const int64_t e = int64_t(row) * tpp + col;
-        const V v = on_chip ? copy[e] : xs[e];
-        const V dv = on_chip ? dcopy[e] : dxs[e];
+    __syncthreads();
+    for (int half = top / 2; half >= 1; half /= 2) {
+      if (active && r < half && r + half < R) {
 #pragma unroll
         for (int j = 0; j < VEC; ++j) {
-          s[j] = fmaf(to_float(v.v[j]) - m[j], to_float(dv.v[j]), s[j]);
+          pa[j] += pa[half * C + j];
+          pb[j] += pb[half * C + j];
         }
       }
-#pragma unroll
-      for (int j = 0; j < VEC; ++j) red[r * C + col * VEC + j] = s[j];
+      __syncthreads();
+    }
+    for (int e = tid; e < 2 * G; e += THREADS) {
+      const int which = e / G;
+      const int g = e - which * G;
+      const float* row0 = plane + which * R * C + g * cg_size;
+      float a = 0.f;
+      for (int c = 0; c < cg_size; ++c) a += row0[c];
+      gsum[(2 * round + which) * G + g] = a;
     }
   }
-  __syncthreads();
-  sum_rows<THREADS>(red, cs + 3 * C, R, C);
-  cluster.sync();
-  for (int c = threadIdx.x; c < C; c += THREADS) {
-    float a = 0.f, b = 0.f;
-#pragma unroll
-    for (int k = 0; k < MAX_CLUSTER; ++k) {   // in rank order
-      if (k < nblk) {
-        const float* remote = cluster.map_shared_rank(cs, k);
-        a += remote[2 * C + c];
-        b += remote[3 * C + c];
-      }
-    }
-    ctot[c] = a;
-    ctot[C + c] = b;
-  }
-  __syncthreads();
-  for (int g = threadIdx.x; g < G; g += THREADS) {
-    float a = 0.f, b = 0.f;
-    for (int c = g * cg_size; c < (g + 1) * cg_size; ++c) {
-      a += ctot[c];
-      b += ctot[C + c];
-    }
-    const float rstd = rsqrtf(a / count + eps);
-    grstd[g] = rstd;
-    gm2[g] = rstd * (b / count);      // mean(xh dx)
-  }
-  // Also a block barrier for grstd and gm2, and no block leaves while
-  // another still reads its sums.
-  cluster.sync();
 
-  // Pass 3: dy = act'(z) (A dx + Bc (x - mu) + Cc), z = A (x - mu) + bias.
-  if (active) {
-    for (int col = q; col < tpp; col += Q) {
-      float m[VEC], a[VEC], b[VEC], bc[VEC], cc[VEC];
+  // Over the cluster, in rank order: every block gets the same totals.
+  cluster.sync();
+  float* gtot = gstat;   // totals first, then the statistics in place
+  for (int e = tid; e < 4 * G; e += THREADS) {
+    float a = 0.f;
+#pragma unroll
+    for (int k = 0; k < MAX_CLUSTER; ++k) {
+      if (k < nblk) a += cluster.map_shared_rank(gsum, k)[e];
+    }
+    gtot[e] = a;
+  }
+  if (nblk > 1) cluster_arrive();   // done reading the others' sums
+  __syncthreads();
+  for (int g = tid; g < G; g += THREADS) {
+    const float d = gtot[g] / count;                 // mean of x - K
+    const float var = fmaxf(gtot[G + g] / count - d * d, 0.f);
+    const float m1 = gtot[2 * G + g] / count;
+    const float cov = gtot[3 * G + g] / count - d * m1;   // mean((x-mu) dx)
+    const float rstd = rsqrtf(var + eps);
+    gtot[g] = gshift[g] + d;                          // mu
+    gtot[G + g] = rstd;
+    gtot[2 * G + g] = m1;
+    gtot[3 * G + g] = rstd * cov;                     // m2 = mean(xh dx)
+  }
+  __syncthreads();
+
+  // Output pass: dy = act'(z) (A dx + Bc (x - mu) + Cc), z = A (x - mu) + bias.
+  float mu[VEC], a[VEC], b[VEC], bc[VEC], cc[VEC];
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) {
+    const int ch = active ? q * VEC + j : 0;
+    const int g = ch / cg_size;
+    const float rstd = gstat[G + g];
+    mu[j] = gstat[g];
+    a[j] = rstd * scale[ch];
+    b[j] = bias[ch];
+    bc[j] = rstd * ((dscale ? dscale[ch] : 0.f) - a[j] * gstat[3 * G + g]);
+    cc[j] = (dbias ? dbias[ch] : 0.f) - a[j] * gstat[2 * G + g];
+  }
+  sweep(on_chip, false, [&](int k, const T* sx, const T* sdx) {
+    if (!active) return;
+    const V* vx = reinterpret_cast<const V*>(sx);
+    const V* vdx = reinterpret_cast<const V*>(sdx);
+    V* out = reinterpret_cast<V*>(dys + int64_t(k) * chunk_rows * row_elems);
+    const int n = chunk_len(k);
+    for (int row = r; row < n; row += R) {
+      const V xv = vx[row * tpp + q];
+      const V dv = vdx[row * tpp + q];
+      V o;
 #pragma unroll
       for (int j = 0; j < VEC; ++j) {
-        const int ch = col * VEC + j;
-        const int g = ch / cg_size;
-        const float rstd = grstd[g];
-        m[j] = gmean[g];
-        a[j] = rstd * sscale[ch];
-        b[j] = sbias[ch];
-        bc[j] = rstd * (sdscale[ch] - a[j] * gm2[g]);
-        cc[j] = sdbias[ch] - a[j] * gm1[g];
-      }
-      for (int row0 = r; row0 < np; row0 += UNROLL * R) {
-        V v[UNROLL], dv[UNROLL];
-#pragma unroll
-        for (int u = 0; u < UNROLL; ++u) {
-          const int row = row0 + u * R;
-          const int64_t e = int64_t(row) * tpp + col;
-          if (row < np) {
-            v[u] = on_chip ? copy[e] : xs[e];
-            dv[u] = on_chip ? dcopy[e] : dxs[e];
-          }
+        const float d = to_float(xv.v[j]) - mu[j];
+        const float z = fmaf(d, a[j], b[j]);
+        float t = fmaf(a[j], to_float(dv.v[j]), fmaf(bc[j], d, cc[j]));
+        if (act == 1) {
+          const float sg = __fdividef(1.f, 1.f + __expf(-z));
+          t *= sg * (1.f + z * (1.f - sg));
+        } else if (act == 2) {
+          t *= z > 0.f ? 1.f : __expf(z);
         }
-#pragma unroll
-        for (int u = 0; u < UNROLL; ++u) {
-          const int row = row0 + u * R;
-          if (row >= np) continue;
-          V out;
-#pragma unroll
-          for (int j = 0; j < VEC; ++j) {
-            const float d = to_float(v[u].v[j]) - m[j];
-            const float z = d * a[j] + b[j];
-            float t = fmaf(a[j], to_float(dv[u].v[j]), fmaf(bc[j], d, cc[j]));
-            if (act == 1) {
-              const float sg = 1.f / (1.f + expf(-z));
-              t *= sg * (1.f + z * (1.f - sg));
-            } else if (act == 2) {
-              t *= z > 0.f ? 1.f : expf(z);
-            }
-            out.v[j] = from_float<T>(t);
-          }
-          dys[int64_t(row) * tpp + col] = out;
-        }
+        o.v[j] = from_float<T>(t);
       }
+      out[row * tpp + q] = o;
     }
-  }
+  });
+  // No block leaves while another still reads its sums.
+  if (nblk > 1) cluster_wait();
 }
 
-template <typename T, int VEC, int THREADS>
+template <typename T, int VEC>
 int launch(const void* x, const void* dx, const float* scale,
            const float* bias, const float* dscale, const float* dbias,
            void* dy, int B, int P, int C, int G, int act, float eps,
-           int cluster, int Q, int on_chip, int smem_bytes, cudaStream_t s) {
-  auto kernel = groupnorm_act_jvp_kernel<T, VEC, THREADS>;
+           int cluster, int rows, int chunk_rows, int stages, int smem_bytes,
+           cudaStream_t s) {
+  auto kernel = groupnorm_act_jvp_kernel<T, VEC>;
   static bool smem_set = false;    // the attribute holds for the process
   if (!smem_set) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -381,56 +436,48 @@ int launch(const void* x, const void* dx, const float* scale,
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
-  cfg.numAttrs = cluster > 1 ? 1 : 0;   // one block: a plain launch
+  cfg.numAttrs = cluster > 1 ? 1 : 0;   // one block an image: a plain launch
   const cudaError_t err = cudaLaunchKernelEx(
       &cfg, kernel, static_cast<const T*>(x), static_cast<const T*>(dx),
-      scale, bias, dscale, dbias, static_cast<T*>(dy), P, C, G, act, eps, Q,
-      on_chip);
+      scale, bias, dscale, dbias, static_cast<T*>(dy), P, C, G, act, eps,
+      rows, chunk_rows, stages);
   if (err != cudaSuccess) return int(err);
   return int(cudaGetLastError());
-}
-
-template <typename T, int VEC>
-int launch_threads(int threads, const void* x, const void* dx,
-                   const float* scale, const float* bias, const float* dscale,
-                   const float* dbias, void* dy, int B, int P, int C, int G,
-                   int act, float eps, int cluster, int Q, int on_chip,
-                   int smem_bytes, cudaStream_t s) {
-  return threads == 256
-      ? launch<T, VEC, 256>(x, dx, scale, bias, dscale, dbias, dy, B, P, C,
-                            G, act, eps, cluster, Q, on_chip, smem_bytes, s)
-      : launch<T, VEC, 512>(x, dx, scale, bias, dscale, dbias, dy, B, P, C,
-                            G, act, eps, cluster, Q, on_chip, smem_bytes, s);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (x, dx and dy share it; scale, bias,
 // dscale and dbias are float32, dscale and dbias null for a zero tangent).
-// The plan (cluster size, threads a block, vector width, thread columns Q,
-// whether the slices stay on chip, and the shared-memory bytes) comes from
-// ops/groupnorm.py `jvp_plan`.  Returns cudaGetLastError() after the launch
-// (0 on success), or the error of a refused launch.
+// The plan (blocks an image, pixels a block, pixels a chunk, ring stages,
+// vector width and shared-memory bytes) comes from ops/groupnorm.py
+// `jvp_plan`; vec > 1 needs 16-byte aligned tensors.  Returns
+// cudaGetLastError() after the launch (0 on success), or the error of a
+// refused launch.
 extern "C" int groupnorm_act_jvp_nhwc(const void* x, const void* dx,
                                       const void* scale, const void* bias,
                                       const void* dscale, const void* dbias,
                                       void* dy, int B, int HW, int C, int G,
                                       int act, float eps, int dtype,
-                                      int cluster, int threads, int vec,
-                                      int Q, int on_chip, int smem_bytes,
-                                      void* stream) {
+                                      int cluster, int vec, int rows,
+                                      int chunk_rows, int stages,
+                                      int smem_bytes, void* stream) {
   const int itemsize = dtype == 0 ? 4 : 2;
-  const int64_t rows = (HW + cluster - 1) / cluster;
+  const int tpp = vec > 0 ? C / vec : 0;
+  const int Q = tpp < THREADS ? tpp : THREADS;
+  const int R = Q > 0 ? THREADS / Q : 0;
+  const int64_t stage_bytes = round_up(chunk_rows * C * itemsize, 128);
   if (B <= 0 || HW <= 0 || C <= 0 || G <= 0 || C % G != 0 || act < 0 ||
       act > 2 || dtype < 0 || dtype > 1 || cluster < 1 ||
-      cluster > MAX_CLUSTER || (threads != 256 && threads != 512) ||
-      (vec != 1 && vec * itemsize != 16) || C % vec != 0 || Q < 1 ||
-      Q > threads || Q > C / vec ||
-      (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(dx) |
-       reinterpret_cast<uintptr_t>(dy)) % (vec * itemsize) ||
-      smem_bytes > SMEM_LIMIT ||
-      smem_bytes < 4 * stat_floats(threads / Q, C, G) +
-                       (on_chip ? 2 * rows * C * itemsize : 0)) {
+      cluster > MAX_CLUSTER || (vec != 1 && vec * itemsize != 16) ||
+      C % vec != 0 || tpp > THREADS || rows < 1 ||
+      int64_t(rows) * cluster < HW || int64_t(rows) * (cluster - 1) >= HW ||
+      chunk_rows < 1 || chunk_rows > rows || stages < 1 ||
+      stages > MAX_STAGES || smem_bytes > SMEM_LIMIT ||
+      smem_bytes < head_bytes(R, C, G) + 2 * stages * stage_bytes ||
+      (vec > 1 && (reinterpret_cast<uintptr_t>(x) |
+                   reinterpret_cast<uintptr_t>(dx) |
+                   reinterpret_cast<uintptr_t>(dy)) % 16)) {
     return int(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -440,18 +487,16 @@ extern "C" int groupnorm_act_jvp_nhwc(const void* x, const void* dx,
   const float* dbi = static_cast<const float*>(dbias);
   if (dtype == 0) {
     return vec == 4
-        ? launch_threads<float, 4>(threads, x, dx, sc, bi, dsc, dbi, dy, B,
-                                   HW, C, G, act, eps, cluster, Q, on_chip,
-                                   smem_bytes, s)
-        : launch_threads<float, 1>(threads, x, dx, sc, bi, dsc, dbi, dy, B,
-                                   HW, C, G, act, eps, cluster, Q, on_chip,
-                                   smem_bytes, s);
+        ? launch<float, 4>(x, dx, sc, bi, dsc, dbi, dy, B, HW, C, G, act, eps,
+                           cluster, rows, chunk_rows, stages, smem_bytes, s)
+        : launch<float, 1>(x, dx, sc, bi, dsc, dbi, dy, B, HW, C, G, act, eps,
+                           cluster, rows, chunk_rows, stages, smem_bytes, s);
   }
   return vec == 8
-      ? launch_threads<__nv_bfloat16, 8>(threads, x, dx, sc, bi, dsc, dbi, dy,
-                                         B, HW, C, G, act, eps, cluster, Q,
-                                         on_chip, smem_bytes, s)
-      : launch_threads<__nv_bfloat16, 1>(threads, x, dx, sc, bi, dsc, dbi, dy,
-                                         B, HW, C, G, act, eps, cluster, Q,
-                                         on_chip, smem_bytes, s);
+      ? launch<__nv_bfloat16, 8>(x, dx, sc, bi, dsc, dbi, dy, B, HW, C, G, act,
+                                 eps, cluster, rows, chunk_rows, stages,
+                                 smem_bytes, s)
+      : launch<__nv_bfloat16, 1>(x, dx, sc, bi, dsc, dbi, dy, B, HW, C, G, act,
+                                 eps, cluster, rows, chunk_rows, stages,
+                                 smem_bytes, s);
 }

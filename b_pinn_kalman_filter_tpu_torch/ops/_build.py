@@ -26,8 +26,9 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, 'csrc')
 BUILD_DIR = os.path.join(_PKG, '_build')
 SOURCES = ('conv3x3', 'conv3x3_wgmma', 'groupnorm', 'groupnorm_jvp',
-           'groupnorm_pergroup', 'correlation', 'correlation_bwd',
-           'correlation_tile', 'ns_step', 'ns_step_staged')
+           'groupnorm_jvp_cluster', 'groupnorm_pergroup', 'correlation',
+           'correlation_bwd', 'correlation_bwd_tile', 'correlation_tile',
+           'ns_step', 'ns_step_staged')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 

@@ -32,7 +32,9 @@ gradients are ``df1 = B1(d, f2)`` and ``df2 = B2(d, f1)``::
                                        * h[b, y-dy_k, x-dx_k, c]
 
 (:func:`correlation_df1`, :func:`correlation_df2`; on the card the two
-entry points of ``csrc/correlation_bwd.cu``, on the CPU
+entry points of ``csrc/correlation_bwd.cu``, sized by
+:func:`correlation_bwd_plan`, with the first card design
+``csrc/correlation_bwd_tile.cu`` as the yardstick; on the CPU
 :func:`correlation_df1_plain` and :func:`correlation_df2_plain`, explicit
 formulas, not autograd of the forward).  The three maps are bilinear and
 close under differentiation: against a cotangent G of ``B1(d, g)`` the
@@ -52,6 +54,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import functools
+import math
 from typing import Dict
 
 import torch
@@ -66,6 +69,10 @@ _SIGNATURES = {
                        + (ctypes.c_void_p,),
 }
 _BWD_SIGNATURES = {
+    name: (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 10 + (ctypes.c_void_p,)
+    for name in ('correlation_df1_f32', 'correlation_df2_f32')
+}
+_BWD_TILE_SIGNATURES = {
     name: (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 4 + (ctypes.c_void_p,)
     for name in ('correlation_df1_f32', 'correlation_df2_f32')
 }
@@ -84,6 +91,15 @@ MAX_TILE_W = 32
 MIN_BLOCKS = 64
 MIN_THREADS = 112          # rows of a tile are not cut below this
 MIN_RANK_CHANNELS = 8      # nor the channels of a cluster rank
+# csrc/correlation_bwd.cu's sizes: at most 256 threads a block, d's 49
+# coefficients a staged pixel as 7 rows of 8 floats, and the card's 132
+# SMs, which the plan's grid aims to cover; a block keeps to half an SM's
+# shared memory, so that two fit.
+NUM_SMS = 132
+BWD_DPIX_BYTES = 7 * 8 * 4
+BWD_SMEM_BUDGET = 233472 // 2 - 1024
+BWD_THREADS = 128          # the block size the plan aims at
+MIN_BWD_THREADS = 64
 
 
 def correlation_plain(f1: torch.Tensor, f2: torch.Tensor,
@@ -187,6 +203,78 @@ def correlation_plan(B: int, H: int, W: int, C: int) -> Dict:
               blocks=B * tiles * split, smem_bytes=smem)
 
 
+def _bwd_smem(th: int, tw: int, strip: int, cs: int) -> int:
+  """csrc/correlation_bwd.cu's shared memory: g (h) over the tile and its
+  halo as 16-byte vectors (a spare column every ``strip``), and d's 49
+  coefficients at each of the tile's pixels as 7 rows of 8 floats."""
+  hw = _pad_col(tw + 2 * _D - 1, strip) + 1
+  return (th + 2 * _D) * hw * -(-cs // 4) * 16 + th * tw * BWD_DPIX_BYTES
+
+
+@functools.lru_cache(maxsize=None)
+def correlation_bwd_plan(B: int, H: int, W: int, C: int) -> Dict:
+  """How csrc/correlation_bwd.cu covers B1 and B2 of a (B, H, W, C) cost
+  volume (one plan for both).
+
+  ``strip``: pixels along x a thread owns (4, 2 or 1: the widest that
+  divides W).  Among the tiles ``th`` x ``tw`` that divide the image
+  (``tw`` a multiple of ``strip``, at most 32) and the channel splits
+  ``split`` (``cs`` = C / split channels a block, a multiple of 4 where
+  split > 1) whose block has at most 256 threads (th * tw / strip * cs / 4)
+  and keeps within ``BWD_SMEM_BUDGET`` bytes (two blocks an SM): where
+  some with ``MIN_BWD_THREADS`` threads or more make a grid B * tiles *
+  split that covers the 132 SMs, the one of those with the most threads,
+  then the fewest splits (each split reads d again), the fewest bytes
+  moved (d once a split; g, h with their halo; the output) and the widest
+  tile; else the one whose threads are nearest
+  ``BWD_THREADS`` (a power-of-two ratio), then the fewest splits, the
+  most blocks, the fewest bytes and the widest tile.  (On an H100 at the
+  FlowNet's levels, batches 8 and 64, these came first or within 10% of
+  first among every tiling: ``scripts/kernel_plans_chip.py``.)  ``vec``:
+  16-byte copies, where C is a multiple of 4.
+  """
+  strip = 4 if W % 4 == 0 else 2 if W % 2 == 0 else 1
+  splits = [1] + [s for s in (2, 4, 8, 16, 32)
+                  if C % s == 0 and (C // s) % 4 == 0]
+  options = []
+  for tw in range(strip, min(W, MAX_TILE_W) + 1, strip):
+    if W % tw:
+      continue
+    for th in range(1, H + 1):
+      if H % th:
+        continue
+      for split in splits:
+        cs = C // split
+        threads = th * (tw // strip) * -(-cs // 4)
+        if threads > MAX_THREADS:
+          continue
+        smem = _bwd_smem(th, tw, strip, cs)
+        if smem > BWD_SMEM_BUDGET:
+          continue
+        tiles = (H // th) * (W // tw)
+        blocks = B * tiles * split
+        halo = (th + 2 * _D) * (tw + 2 * _D)
+        moved = B * tiles * (th * tw * (SHIFTS * split + cs * split)
+                             + halo * cs * split) * 4
+        options.append(dict(strip=strip, tw=tw, th=th, split=split, cs=cs,
+                            vec=int(C % 4 == 0), threads=threads,
+                            tiles=tiles, blocks=blocks, smem_bytes=smem,
+                            bytes_moved=moved))
+  full = [o for o in options if o['blocks'] >= NUM_SMS
+          and o['threads'] >= MIN_BWD_THREADS]
+  if full:
+    key = lambda o: (o['threads'], -o['split'], -o['bytes_moved'], o['tw'])
+    best = max(full, key=key)
+  else:
+    key = lambda o: (-abs(math.log2(o['threads'] / BWD_THREADS)),
+                     -o['split'], o['blocks'], -o['bytes_moved'], o['tw'])
+    best = max(options, key=key) if options else None
+  if best is None:
+    raise ValueError(f'correlation backward: no tile of {H}x{W} with {C} '
+                     'channels fits a block')
+  return best
+
+
 def _check(f1: torch.Tensor, f2: torch.Tensor) -> None:
   if f1.ndim != 4 or f1.shape != f2.shape:
     raise ValueError(f'correlation: f1 {tuple(f1.shape)} and f2 '
@@ -241,15 +329,36 @@ def _gradient(which: str, d: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
   if d.device != g.device:
     raise ValueError(f'correlation {which}: d and g must share a device')
   B, H, W, C = g.shape
+  plan = correlation_bwd_plan(B, H, W, C)
   d, g = _build.aligned(d), _build.aligned(g)
   out = torch.empty_like(g)
   lib = _build.load('correlation_bwd', _BWD_SIGNATURES)
   stream = torch.cuda.current_stream(g.device).cuda_stream
   err = getattr(lib, f'correlation_{which}_f32')(
-      d.data_ptr(), g.data_ptr(), out.data_ptr(), B, H, W, C, stream)
+      d.data_ptr(), g.data_ptr(), out.data_ptr(), B, H, W, C, plan['th'],
+      plan['tw'], plan['strip'], plan['split'], plan['cs'], plan['vec'],
+      stream)
   _build.check_launch(err, f'correlation {which}')
   _PUBLIC[which].launches += 1
   _PUBLIC[which].sizes[(H, W)] += 1
+  return out
+
+
+def _gradient_tile(which: str, d: torch.Tensor,
+                   g: torch.Tensor) -> torch.Tensor:
+  """B1 or B2 by the first card design (csrc/correlation_bwd_tile.cu, a
+  fixed 8x8 tile and 32 channels a block) on CUDA tensors: the yardstick
+  ``chip_smoke.py`` times beside :func:`correlation_df1` and
+  :func:`correlation_df2`.  The main path never calls it."""
+  _check(g, g)
+  B, H, W, C = g.shape
+  d, g = d.contiguous(), g.contiguous()
+  out = torch.empty_like(g)
+  lib = _build.load('correlation_bwd_tile', _BWD_TILE_SIGNATURES)
+  stream = torch.cuda.current_stream(g.device).cuda_stream
+  err = getattr(lib, f'correlation_{which}_f32')(
+      d.data_ptr(), g.data_ptr(), out.data_ptr(), B, H, W, C, stream)
+  _build.check_launch(err, f'correlation {which} (tile)')
   return out
 
 

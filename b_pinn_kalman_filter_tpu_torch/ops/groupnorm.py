@@ -20,9 +20,13 @@ likelihood's divergence): per (image, group) of n elements, with mu, r =
 mean(dx) and m2 = mean(xh dx), the tangent of xh is r (dx - m1 - xh m2);
 then dz = scale dxh + dscale xh + dbias and dy = act'(z) dz, z = scale xh
 + bias.  On the card that is the kernel ``csrc/groupnorm_jvp.cu``
-(:func:`groupnorm_act_jvp`, counted in ``groupnorm_act_jvp.launches``),
-which reads x and dx once and writes dy alone: the Function's forward
-gave y by a K2 launch.  On the CPU it is :func:`groupnorm_act_jvp_plain`.
+(:func:`groupnorm_act_jvp`, counted in ``groupnorm_act_jvp.launches``;
+:func:`jvp_plan` sizes it), which streams x and dx in through the TMA,
+takes the statistics in one shifted pass, and writes dy alone: the
+Function's forward gave y by a K2 launch.  On the CPU it is
+:func:`groupnorm_act_jvp_plain`.  The first card design of the JVP,
+``csrc/groupnorm_jvp_cluster.cu`` on K2's plan, stays as the yardstick
+``chip_smoke.py`` times beside it (:func:`_groupnorm_act_jvp_cluster`).
 """
 
 from __future__ import annotations
@@ -64,6 +68,17 @@ SMALL_THREADS = 256
 MAX_CLUSTER = 8
 SMEM_LIMIT = 232448
 MIN_SLICE_BYTES = 16 * 1024   # a block's least share of an image
+# csrc/groupnorm_jvp.cu's sizes: 256 threads a block, ring stages of at
+# most 8 KB of x (and as much of dx), at most 32 of them, and two blocks an
+# SM: an SM's 233,472 bytes of shared memory, less 1 KB the card keeps for
+# each block, halved.
+JVP_THREADS = 256
+JVP_CHUNK_BYTES = 8 * 1024
+JVP_MAX_STAGES = 32
+SM_SMEM = 233472
+BLOCK_RESERVED = 1024
+NUM_SMS = 132
+JVP_BLOCK_SMEM = SM_SMEM // 2 - BLOCK_RESERVED
 
 
 def groupnorm_act_plain(x: torch.Tensor, scale: torch.Tensor,
@@ -118,13 +133,13 @@ def groupnorm_plan(H: int, W: int, C: int, G: int, itemsize: int) -> Dict:
               on_chip=on_chip, smem_bytes=smem, slice_bytes=slice_bytes)
 
 
-def jvp_plan(H: int, W: int, C: int, G: int, itemsize: int) -> Dict:
-  """How csrc/groupnorm_jvp.cu covers one image: K2's cluster, threads,
-  vector width and thread columns (:func:`groupnorm_plan`), so that its
-  sums of x run in K2's order and its mu and r are K2's bits; ``on_chip``
-  where a block's slices of x and of dx both fit beside its statistics
-  (one plane of per-row sums and 10 C + 4 G floats), else the kernel
-  reads them again for its later passes."""
+def _cluster_jvp_plan(H: int, W: int, C: int, G: int, itemsize: int) -> Dict:
+  """How the first card design of the JVP (csrc/groupnorm_jvp_cluster.cu,
+  the yardstick) covers one image: K2's cluster, threads, vector width and
+  thread columns (:func:`groupnorm_plan`), so that its sums of x run in
+  K2's order; ``on_chip`` where a block's slices of x and of dx both fit
+  beside its statistics (one plane of per-row sums and 10 C + 4 G floats),
+  else it reads them again for its later passes."""
   plan = dict(groupnorm_plan(H, W, C, G, itemsize))
   rows = plan['threads'] // plan['q']
   stat_bytes = 4 * ((rows * C + 10 * C + 4 * G + 3) // 4 * 4)
@@ -132,6 +147,77 @@ def jvp_plan(H: int, W: int, C: int, G: int, itemsize: int) -> Dict:
   plan.update(on_chip=on_chip, smem_bytes=stat_bytes + (
       2 * plan['slice_bytes'] if on_chip else 0))
   return plan
+
+
+def _round_up(n: int, m: int) -> int:
+  return -(-n // m) * m
+
+
+@functools.lru_cache(maxsize=None)
+def jvp_plan(H: int, W: int, C: int, G: int, itemsize: int,
+             B: int = 1) -> Dict:
+  """How csrc/groupnorm_jvp.cu covers a batch of B images of (H, W, C).
+
+  ``vec``: channels a load, 16 bytes' worth where C * itemsize is a
+  multiple of 16 (then the TMA streams the slices), else 1.  ``q`` thread
+  columns and ``rows_in_flight`` = 256 // q rows of them.  ``cluster``:
+  blocks an image, the least power of two up to 8 whose ring holds a
+  block's slices of x and dx in ``JVP_BLOCK_SMEM`` beside the plane and
+  statistics (``head_bytes``), so that two blocks fit on an SM, else 8;
+  then doubled while the grid stays within one wave of the 132 SMs and a
+  block keeps ``MIN_SLICE_BYTES`` of x and dx.  (On an H100 at the
+  flagship's sites the least cluster was the fastest at batch 256, and
+  more blocks shortened the chain at batch 8; one block an image at 16x16
+  and below, which keeps no such slice on chip, took up to 3x the first
+  design's time there: ``scripts/kernel_plans_chip.py``, PERF.md §6.)  ``rows``: pixels a block;
+  ``chunk_rows``: pixels a chunk (8 KB of x at most); ``stages``: ring
+  stages of x and dx, as many chunks as fit; ``on_chip``: the ring holds
+  the block's slice (else its output pass streams it again).  ``blocks``:
+  the grid, cluster x B.
+  """
+  P = H * W
+  vec = 16 // itemsize if (C * itemsize) % 16 == 0 else 1
+  tpp = C // vec
+  if tpp > JVP_THREADS:
+    raise ValueError(f'groupnorm_act_jvp: C = {C} has more than '
+                     f'{JVP_THREADS} vectors a pixel')
+  q = tpp
+  rows_in_flight = JVP_THREADS // q
+  # The plane [2][rows_in_flight][C], the group sums, statistics and
+  # shifts (9 G), then the mbarriers.
+  head = (_round_up(4 * (2 * rows_in_flight * C + 9 * G), 128)
+          + _round_up(8 * JVP_MAX_STAGES, 128))
+  budget = JVP_BLOCK_SMEM - head
+  pixel_bytes = C * itemsize
+
+  def ring(cluster):
+    """(rows, chunk_rows, chunks, stage bytes) of a block of ``cluster``."""
+    rows = math.ceil(P / cluster)
+    chunk_rows = max(1, min(rows, JVP_CHUNK_BYTES // pixel_bytes))
+    return (rows, chunk_rows, math.ceil(rows / chunk_rows),
+            _round_up(chunk_rows * pixel_bytes, 128))
+
+  cluster = 1
+  while cluster < MAX_CLUSTER and 2 * cluster <= P:
+    _, _, chunks, stage_bytes = ring(cluster)
+    if 2 * chunks * stage_bytes <= budget:
+      break
+    cluster *= 2
+  # A grid short of a wave (the flagship's batch 8) spreads an image over
+  # more blocks while each keeps MIN_SLICE_BYTES of x and dx.
+  while (cluster < MAX_CLUSTER and 2 * cluster <= P
+         and 2 * B * cluster <= NUM_SMS
+         and 2 * math.ceil(P / (2 * cluster)) * pixel_bytes
+         >= MIN_SLICE_BYTES):
+    cluster *= 2
+  rows, chunk_rows, chunks, stage_bytes = ring(cluster)
+  stages = max(1, min(chunks, JVP_MAX_STAGES, budget // (2 * stage_bytes)))
+  return dict(cluster=cluster, threads=JVP_THREADS, vec=vec, q=q,
+              rows_in_flight=rows_in_flight, rows=rows,
+              chunk_rows=chunk_rows, chunks=chunks, stages=stages,
+              on_chip=stages == chunks, head_bytes=head,
+              smem_bytes=head + 2 * stages * stage_bytes,
+              blocks=cluster * B)
 
 
 def groupnorm_act_jvp_plain(x: torch.Tensor, dx: Optional[torch.Tensor],
@@ -306,17 +392,47 @@ def groupnorm_act_jvp(x: torch.Tensor, dx: Optional[torch.Tensor],
   _check('groupnorm_act_jvp', x, dscale, dbias, num_groups, act)
   if dx is not None and (dx.shape != x.shape or dx.device != x.device):
     raise ValueError('groupnorm_act_jvp: dx must be like x')
-  plan = jvp_plan(H, W, C, num_groups, x.element_size())
+  plan = jvp_plan(H, W, C, num_groups, x.element_size(), B)
   if plan['smem_bytes'] > SMEM_LIMIT:
     raise ValueError(f'groupnorm_act_jvp: C = {C} needs '
                      f'{plan["smem_bytes"]} bytes of shared memory for its '
                      'statistics')
+  x, dx, s, b, ds, db, dy, stream = _jvp_operands(x, dx, scale, bias, dscale,
+                                                  dbias)
+  lib = _build.load('groupnorm_jvp', _JVP_SIGNATURES)
+  err = lib.groupnorm_act_jvp_nhwc(
+      x.data_ptr(), dx.data_ptr(), s.data_ptr(), b.data_ptr(),
+      None if ds is None else ds.data_ptr(),
+      None if db is None else db.data_ptr(), dy.data_ptr(), B, H * W, C,
+      num_groups, ACTS[act], eps, _DTYPE_CODES[x.dtype], plan['cluster'],
+      plan['vec'], plan['rows'], plan['chunk_rows'], plan['stages'],
+      plan['smem_bytes'], stream)
+  _build.check_launch(err, 'groupnorm_act_jvp')
+  groupnorm_act_jvp.launches += 1
+  return dy
+
+
+def _jvp_operands(x, dx, scale, bias, dscale, dbias):
+  """x, dx (zeros for None) in x's dtype, contiguous and 16-byte aligned;
+  scale, bias, dscale, dbias (None stays None) as f32; dy; the stream."""
   x, s, b, dy, stream = _operands(x, scale, bias)
   dx = torch.zeros_like(x) if dx is None else dx.to(x.dtype).contiguous()
   x, dx = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (x, dx))
   ds, db = (None if t is None else t.float().contiguous()
             for t in (dscale, dbias))
-  lib = _build.load('groupnorm_jvp', _JVP_SIGNATURES)
+  return x, dx, s, b, ds, db, dy, stream
+
+
+def _groupnorm_act_jvp_cluster(x, dx, scale, bias, dscale=None, dbias=None,
+                               num_groups=32, act='silu', eps=1e-6):
+  """The first card design of the JVP (csrc/groupnorm_jvp_cluster.cu, K2's
+  plan) on CUDA tensors: the yardstick ``chip_smoke.py`` times beside
+  :func:`groupnorm_act_jvp`.  The main path never calls it."""
+  B, H, W, C = _check('groupnorm_act_jvp', x, scale, bias, num_groups, act)
+  plan = _cluster_jvp_plan(H, W, C, num_groups, x.element_size())
+  x, dx, s, b, ds, db, dy, stream = _jvp_operands(x, dx, scale, bias, dscale,
+                                                  dbias)
+  lib = _build.load('groupnorm_jvp_cluster', _JVP_SIGNATURES)
   err = lib.groupnorm_act_jvp_nhwc(
       x.data_ptr(), dx.data_ptr(), s.data_ptr(), b.data_ptr(),
       None if ds is None else ds.data_ptr(),
@@ -324,8 +440,7 @@ def groupnorm_act_jvp(x: torch.Tensor, dx: Optional[torch.Tensor],
       num_groups, ACTS[act], eps, _DTYPE_CODES[x.dtype], plan['cluster'],
       plan['threads'], plan['vec'], plan['q'], int(plan['on_chip']),
       plan['smem_bytes'], stream)
-  _build.check_launch(err, 'groupnorm_act_jvp')
-  groupnorm_act_jvp.launches += 1
+  _build.check_launch(err, 'groupnorm_act_jvp (cluster)')
   return dy
 
 

@@ -83,7 +83,9 @@ Run from the root of a checkout; it needs one CUDA card, ``nvcc`` and
 9. PINN phase 1 (``pinn/pinn_pde`` at full width: batch 64, 64x64,
    FlowNet levels 16..128, f32, TF32 off): K3's backward (B1 and B2,
    csrc/correlation_bwd.cu) against its plain versions at the five level
-   shapes at batch 64 and an odd shape, each run twice for its bits, and
+   shapes at batch 64 and at batch 8 and at odd shapes (C = 1 and 3, 5x7
+   and 5x9), beside its first card design (csrc/correlation_bwd_tile.cu,
+   the yardstick), each run twice for its bits, and
    one second-order product against autograd of the plain cost volume,
    all timed as in phase 3; one prelim step's loss and gradients, kernel
    path against plain path (the same randomised parameters, batch, mask
@@ -163,7 +165,9 @@ Run from the root of a checkout; it needs one CUDA card, ``nvcc`` and
    (K1 on the tangent) and the K2 JVP kernel (csrc/groupnorm_jvp.cu)
    against their plain versions at every flagship site (batch 8, f32 and
    bf16), timed in bf16 as in phase 3 beside ``torch.func.jvp`` of
-   ``F.conv2d`` and of ``F.group_norm`` + ``F.silu``; one drift-plus-divergence
+   ``F.conv2d`` and of ``F.group_norm`` + ``F.silu`` and (K2 JVP) beside its
+   first card design (csrc/groupnorm_jvp_cluster.cu, the yardstick); the
+   K2 JVP kernel again at batch 256 (the bits/dim batch); one drift-plus-divergence
    evaluation of the likelihood (one forward-mode pass of the U-Net,
    every parameter randomised, batch 8), kernel path against plain path,
    with its launches (79 K1 on x and 79 on the tangent, 76 K2 and 76 K2
@@ -625,6 +629,8 @@ def kernel_phase(name, sites, check, seed, **kw):
         if key in row and not row[key] <= TOL[dtype]:
           failures.append(f'{name} {shape} {row["dtype"]}: {key} '
                           f'{row[key]:.3e} > {TOL[dtype]}')
+      if not row.get('same_bits_twice', True):
+        failures.append(f'{name} {shape} {row["dtype"]}: two runs differ')
   bf16 = [r for r in rows if r['dtype'] == 'bfloat16']
   total = {k: sum(r[k] * r['per_forward'] for r in bf16)
            for k in ('ms', 'plain_ms', 'library_ms', 'bound_ms')}
@@ -1172,10 +1178,14 @@ def check_corr_bwd(shape, seed):
       ('df2', k3.correlation_df2, k3.correlation_df2_plain)):
     with torch.inference_mode():
       got, again, want = fn(d, a), fn(d, a), plain(d, a)
+      old = k3._gradient_tile(name, d, a)
       torch.cuda.synchronize()
       abs_err, rel = rel_err(got, want)
-      times = timings(lambda: fn(d, a), lambda: plain(d, a))
+      prev_abs, prev_rel = rel_err(old, want)
+      times = timings(lambda: fn(d, a), lambda: plain(d, a),
+                      prev=lambda: k3._gradient_tile(name, d, a))
     row[name] = dict(times, max_abs_err=abs_err, rel_err=rel,
+                     prev_abs_err=prev_abs, prev_rel_err=prev_rel,
                      same_bits_twice=bool(torch.equal(got, again)))
   f1, f2, r = (torch.randn(shape, generator=g, device='cuda')
                for _ in range(3))
@@ -1193,24 +1203,30 @@ def check_corr_bwd(shape, seed):
   # multiply-adds a pixel.
   row['bound_ms'], row['bound_by'] = bound(
       2 * 49 * C * pixels, (49 + 2 * C) * pixels * 4, torch.float32)
-  for k in ('ms', 'call_ms', 'plain_ms'):
+  for k in ('ms', 'call_ms', 'plain_ms', 'prev_ms'):
     row[k] = row['df1'][k] + row['df2'][k]
   row['bound_ms'] *= 2
-  row['max_abs_err'] = max(row['df1']['max_abs_err'],
-                           row['df2']['max_abs_err'])
-  row['rel_err'] = max(row['df1']['rel_err'], row['df2']['rel_err'])
+  for k in ('max_abs_err', 'rel_err', 'prev_abs_err', 'prev_rel_err'):
+    row[k] = max(row['df1'][k], row['df2'][k])
+  plan = k3.correlation_bwd_plan(*shape)
+  row['plan'] = {k: plan[k] for k in ('th', 'tw', 'strip', 'split', 'cs',
+                                      'threads', 'blocks', 'smem_bytes')}
   return row
 
 
 def corr_bwd_phase(seed):
   """K3's backward at the prelim step's five level shapes at batch 64
-  (one B1 and one B2 launch each a step) and at an odd shape.  Returns
-  (rows, per-step totals, failures)."""
+  (one B1 and one B2 launch each a step), at the same levels at batch 8
+  (the ukf's draws) and at odd shapes (C = 1 and 3, H and W not multiples
+  of 8), each beside the first card design (8x8 tiles, the
+  yardstick).  Returns (rows, per-step totals, failures)."""
   config = configs.get_config(PRELIM_CONFIG)
   size, batch = config.data.image_size, config.training.batch_size
-  shapes = ([((batch, size >> (i + 1), size >> (i + 1), c), 1)
-             for i, c in enumerate(config.model.feature_nums)]
-            + [((3, 13, 11, 24), 0)])
+  levels = [(size >> (i + 1), c)
+            for i, c in enumerate(config.model.feature_nums)]
+  shapes = ([((batch, h, h, c), 1) for h, c in levels]
+            + [((8, h, h, c), 0) for h, c in levels]
+            + [((3, 13, 11, 24), 0), ((2, 5, 7, 3), 0), ((2, 5, 9, 1), 0)])
   rows, failures = [], []
   tol = TOL[torch.float32]
   for i, (shape, per_step) in enumerate(shapes):
@@ -1221,24 +1237,33 @@ def corr_bwd_phase(seed):
         f'df2 {row["df2"]["rel_err"]:.3e} second order '
         f'{row["second_order_rel_err"]:.3e} | kernels {row["ms"]:.4f} ms '
         f'(df1 {row["df1"]["ms"]:.4f}, df2 {row["df2"]["ms"]:.4f}; calls '
-        f'{row["call_ms"]:.4f}) plain {row["plain_ms"]:.4f} bound '
-        f'{row["bound_ms"]:.6f} ({row["bound_by"]})')
+        f'{row["call_ms"]:.4f}) first design {row["prev_ms"]:.4f} plain '
+        f'{row["plain_ms"]:.4f} bound {row["bound_ms"]:.6f} '
+        f'({row["bound_by"]}) plan {row["plan"]}')
     for key in ('df1', 'df2'):
-      if not row[key]['rel_err'] <= tol:
-        failures.append(f'correlation {key} {shape}: rel '
-                        f'{row[key]["rel_err"]:.3e}')
+      for err in ('rel_err', 'prev_rel_err'):
+        if not row[key][err] <= tol:
+          failures.append(f'correlation {key} {shape}: {err} '
+                          f'{row[key][err]:.3e}')
       if not row[key]['same_bits_twice']:
         failures.append(f'correlation {key} {shape}: two runs differ')
     if not row['second_order_rel_err'] <= tol:
       failures.append(f'correlation second order {shape}: rel '
                       f'{row["second_order_rel_err"]:.3e}')
   total = {k: sum(r[k] * r['per_step'] for r in rows)
-           for k in ('ms', 'call_ms', 'plain_ms', 'bound_ms')}
+           for k in ('ms', 'call_ms', 'plain_ms', 'bound_ms', 'prev_ms')}
   total.update(bound_by='bytes', library_ms=None,
-               max_abs_err=max(r['max_abs_err'] for r in rows))
+               max_abs_err=max(r['max_abs_err'] for r in rows),
+               prev_abs_err=max(r['prev_abs_err'] for r in rows))
   log(f'  per prelim step (f32, batch {batch}, device ms): B1+B2 kernels '
       f'{total["ms"]:.4f} in {2 * len(config.model.feature_nums)} launches, '
-      f'plain {total["plain_ms"]:.4f}, bound {total["bound_ms"]:.6f}')
+      f'first design {total["prev_ms"]:.4f}, plain {total["plain_ms"]:.4f}, '
+      f'bound {total["bound_ms"]:.6f}')
+  small = [r for r in rows if r['shape'][0] == 8]
+  log(f'  the same levels at batch 8 (device ms): B1+B2 kernels '
+      f'{sum(r["ms"] for r in small):.4f}, first design '
+      f'{sum(r["prev_ms"] for r in small):.4f}, bound '
+      f'{sum(r["bound_ms"] for r in small):.6f}')
   return rows, total, failures
 
 
@@ -2636,13 +2661,14 @@ BPD_F32_TOL = 1e-3
 BPD_F32_ODE_TOL = 1e-3
 
 
-def jvp_timings(dtype, kernel, plain, library):
+def jvp_timings(dtype, kernel, plain, library, prev=None):
   """``timings`` in bf16, the main path's dtype, the kernel table's; in
   f32 the forward-mode rows are checked, not timed (NaN)."""
   if dtype == torch.bfloat16:
-    return timings(kernel, plain, library)
-  return dict.fromkeys(('ms', 'call_ms', 'plain_ms', 'library_ms'),
-                       float('nan'))
+    return timings(kernel, plain, library, prev)
+  keys = ('ms', 'call_ms', 'plain_ms', 'library_ms') + (
+      ('prev_ms',) if prev is not None else ())
+  return dict.fromkeys(keys, float('nan'))
 
 
 def check_conv_jvp(shape, dtype, seed, batch=BATCH):
@@ -2685,10 +2711,11 @@ def check_conv_jvp(shape, dtype, seed, batch=BATCH):
 def check_norm_jvp(shape, dtype, seed, batch=BATCH):
   """The K2 JVP kernel at the site (H, W, C, G), SiLU, a tangent on x:
   ``torch.func.jvp`` through K2 (one K2 and one K2 JVP launch) held
-  against ``groupnorm_act_jvp_plain``; the kernel alone timed beside it
-  and ``torch.func.jvp`` of ``F.group_norm`` + ``F.silu`` (primal and
-  tangent).  ``on_chip`` is ``jvp_plan``'s (False: x and dx are read
-  again for the later passes)."""
+  against ``groupnorm_act_jvp_plain``, and the first card design (on K2's
+  cluster plan, the yardstick) too; the kernel alone timed beside the
+  yardstick, the plain version and ``torch.func.jvp`` of ``F.group_norm``
+  + ``F.silu`` (primal and tangent).  ``on_chip`` is ``jvp_plan``'s (False:
+  the output pass streams x and dx again)."""
   H, W, C, G = shape
   g = torch.Generator(device='cuda').manual_seed(seed)
   x = (torch.randn((batch, H, W, C), generator=g, device='cuda') * 2 + 0.5
@@ -2699,10 +2726,14 @@ def check_norm_jvp(shape, dtype, seed, batch=BATCH):
   with torch.no_grad():
     _, got = torch.func.jvp(
         lambda a: k2.groupnorm_act(a, scale, bias, G, 'silu'), (x,), (dx,))
+    again = k2.groupnorm_act_jvp(x, dx, scale, bias, None, None, G, 'silu')
+    old = k2._groupnorm_act_jvp_cluster(x, dx, scale, bias, None, None, G,
+                                        'silu')
     want = k2.groupnorm_act_jvp_plain(x, dx, scale, bias, None, None, G,
                                       'silu')
     torch.cuda.synchronize()
     abs_err, rel = rel_err(got, want)
+    prev_abs, prev_rel = rel_err(old, want)
     x_lib, dx_lib = x.permute(0, 3, 1, 2), dx.permute(0, 3, 1, 2)
     s_lib, b_lib = scale.to(dtype), bias.to(dtype)
     row = jvp_timings(
@@ -2712,12 +2743,19 @@ def check_norm_jvp(shape, dtype, seed, batch=BATCH):
                                            'silu'),
         lambda: torch.func.jvp(
             lambda a: F.silu(F.group_norm(a, G, s_lib, b_lib, 1e-6)),
-            (x_lib,), (dx_lib,)))
-  row['on_chip'] = k2.jvp_plan(H, W, C, G, x.element_size())['on_chip']
+            (x_lib,), (dx_lib,)),
+        prev=lambda: k2._groupnorm_act_jvp_cluster(x, dx, scale, bias, None,
+                                                   None, G, 'silu'))
+  plan = k2.jvp_plan(H, W, C, G, x.element_size(), batch)
+  row.update(on_chip=plan['on_chip'], cluster=plan['cluster'],
+             blocks=plan['blocks'], stages=plan['stages'],
+             smem_bytes=plan['smem_bytes'],
+             same_bits_twice=bool(torch.equal(got, again)))
   n = x.numel()
   nbytes = 3 * n * x.element_size() + 8 * C
   row['bound_ms'], row['bound_by'] = bound(25 * n, nbytes, dtype)
-  row.update(max_abs_err=abs_err, rel_err=rel)
+  row.update(max_abs_err=abs_err, rel_err=rel, prev_abs_err=prev_abs,
+             prev_rel_err=prev_rel)
   return row
 
 
@@ -3322,8 +3360,15 @@ def main():
   jvp_norm_rows, jvp_norm_total, jvp_norm_more, f25 = kernel_phase(
       'groupnorm_act jvp', norm_sites, check_norm_jvp, args.seed)
   failures += f24 + f25
+  log(f'[eval: the K2 JVP kernel vs plain at the main-path shapes, batch '
+      f'{EVAL_BATCH} (the bits/dim batch), f32 and bf16]')
+  jvp_b256_rows, jvp_b256_total, jvp_b256_more, f25b = kernel_phase(
+      'groupnorm_act jvp', norm_sites, check_norm_jvp, args.seed + 50,
+      batch=EVAL_BATCH)
+  failures += f25b
   report['kernels'].update(conv3x3_jvp=jvp_conv_rows,
-                           groupnorm_act_jvp=jvp_norm_rows)
+                           groupnorm_act_jvp=jvp_norm_rows,
+                           groupnorm_act_jvp_b256=jvp_b256_rows)
   log(f'[eval: one drift + divergence evaluation of the likelihood, kernel '
       f'path vs plain path, batch {BATCH}, f32 and bf16]')
   report['drift_div'], per_eval_bpd, f26 = drift_div_phase(per_forward,
@@ -3408,7 +3453,13 @@ def main():
                  'groupnorm_pallas.py:118',
                  eval_launches['groupnorm_act_jvp'],
                  dict(jvp_norm_total, **jvp_norm_more)),
-           bpd_eval_launches=(per_eval_bpd or {}).get('groupnorm_act_jvp')),
+           bpd_eval_launches=(per_eval_bpd or {}).get('groupnorm_act_jvp'),
+           **{f'b{EVAL_BATCH}_{k}': v for k, v in dict(
+               jvp_b256_total, prev_ms=jvp_b256_more['prev_ms']).items()}),
+      dict(entry('groupnorm_act_jvp_cluster', 'groupnorm_jvp_cluster.cu',
+                 'groupnorm_pallas.py:118', 0,
+                 dict(jvp_norm_total, **jvp_norm_more), yardstick=True),
+           **{f'b{EVAL_BATCH}_ms': jvp_b256_more['prev_ms']}),
       entry('groupnorm_act_pergroup', 'groupnorm_pergroup.cu',
             'groupnorm_pallas.py:118', 0, norm_all, yardstick=True),
       dict(entry('correlation', 'correlation.cu', 'correlation_pallas.py:42',
@@ -3430,6 +3481,7 @@ def main():
            phase2_step_launches=step_launches['correlation_df1']
            + step_launches['correlation_df2'],
            phase2_step_device_ms=report['pinn']['k3_bwd_device_ms'],
+           phase2_step_ms_from_rows=per_level * bwd_total['ms'],
            phase2_step_bound_ms=per_level * bwd_step_bound,
            bpinn_launches=bpinn_train['launches']['correlation_df1']
            + bpinn_train['launches']['correlation_df2'],
@@ -3437,6 +3489,9 @@ def main():
            + bpinn_step['correlation_df2'],
            bpinn_step_device_ms=bpinn_train['k3_bwd_device_ms'],
            bpinn_step_bound_ms=bwd_step_bound),
+      dict(entry('correlation_bwd_tile', 'correlation_bwd_tile.cu',
+                 'correlation_pallas.py:42', 0, bwd_total, yardstick=True),
+           phase2_step_ms_from_rows=per_level * bwd_total['prev_ms']),
       entry('correlation_tile', 'correlation_tile.cu',
             'correlation_pallas.py:42', 0, corr, yardstick=True),
       entry('ns_step_fused', 'ns_step.cu', 'ns_step_pallas.py:63',

@@ -2,6 +2,8 @@
 package: one tiny DDPM config applied to both packages' config trees, and
 flax params with every leaf randomised from a numpy seed."""
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -124,6 +126,38 @@ def pinn_param_shapes(config):
       train=False))['params']
 
 
+def posterior_eps(rng, bparams, name_hash):
+  """The standard normals that JAX ``bayes.sample_params(rng, bparams)``
+  draws, bit for bit, for use inside a jitted program; ``name_hash``
+  stands for the ``hash`` it folds into the key.
+
+  ``sample_params`` draws one ``jax.random.normal`` per leaf, 123 threefry
+  programs for the tiny PINN, whose tracing and compiling took most of a
+  B-PINN test's time.  Here the leaves are grouped by size, rounded up to
+  a power of 4, and each group is one vmapped draw of that many normals
+  per leaf key, cut to the leaf: threefry's counter is the element's flat
+  index, so ``normal(k, shape)`` is the first ``size`` values of
+  ``normal(k, (n,))`` for any n >= size, reshaped."""
+  import jax
+  out = {}
+  for key in bparams:
+    leaves, treedef = jax.tree_util.tree_flatten(bparams[key]['mu'])
+    keys = jax.random.split(
+        jax.random.fold_in(rng, name_hash(key) % (2 ** 31)), len(leaves))
+    groups = {}
+    for i, leaf in enumerate(leaves):
+      groups.setdefault(4 ** math.ceil(math.log(leaf.size, 4) - 1e-9),
+                        []).append(i)
+    eps = [None] * len(leaves)
+    for n, idx in groups.items():
+      flat = jax.vmap(lambda k, n=n, dtype=leaves[idx[0]].dtype:
+                      jax.random.normal(k, (n,), dtype))(keys[np.asarray(idx)])
+      for row, i in enumerate(idx):
+        eps[i] = flat[row, :leaves[i].size].reshape(leaves[i].shape)
+    out[key] = jax.tree_util.tree_unflatten(treedef, eps)
+  return out
+
+
 def pinn_inputs(batch=1, size=16, seed=0):
   """(f1, f2, x, y, t) as numpy float32: two random frames, the unit
   coordinate grids and times 1, 2, ..."""
@@ -156,6 +190,16 @@ TRAIN_BATCH = 4
 # seconds less and run a few times each.
 FAST_COMPILE = {'xla_backend_optimization_level': 0,
                 'xla_llvm_disable_expensive_passes': True}
+
+
+def jax_state_init(tx, ema_rate):
+  """JAX ``state.create_train_state(params, tx, ema_rate)`` jitted: one
+  program, where the eager call compiles each of its zeros and copies
+  for each leaf shape."""
+  import jax
+  from b_pinn_kalman_filter_tpu.train import state as jax_state
+  return jax.jit(lambda params: jax_state.create_train_state(params, tx,
+                                                             ema_rate))
 
 
 def train_configs(case):
@@ -251,17 +295,13 @@ def check_three_train_steps(side, case):
   parameter leaf, Adam's mu, nu and count, the EMA and the step (after the
   first, the parameters unchanged: the warmup's lr is 0); then one eval
   step under the EMA."""
-  import jax
   import jax.numpy as jnp
-  from b_pinn_kalman_filter_tpu.train import state as jax_state
   from b_pinn_kalman_filter_tpu_torch.core import losses
   from b_pinn_kalman_filter_tpu_torch.core import sde as sde_lib
   from b_pinn_kalman_filter_tpu_torch.models import convert, ddpm
   _, torch_config = train_configs(case)
   tx = losses.get_optimizer(torch_config)
-  j_state = jax_state.create_train_state(
-      jax.tree_util.tree_map(jnp.asarray, side['params']), side['tx'],
-      side['ema_rate'])
+  j_state = jax_state_init(side['tx'], side['ema_rate'])(side['params'])
   model = ddpm.DDPM(torch_config).eval()
   state = convert.train_state_from_jax(j_state, model)
   sde, _ = sde_lib.get_sde(torch_config)

@@ -28,7 +28,6 @@ import torch
 from b_pinn_kalman_filter_tpu.models import flownet as jax_flownet
 from b_pinn_kalman_filter_tpu.pinn import bayes as jax_bayes
 from b_pinn_kalman_filter_tpu.pinn import losses as jax_losses
-from b_pinn_kalman_filter_tpu.train import state as jax_state
 from b_pinn_kalman_filter_tpu_torch.models import convert
 from b_pinn_kalman_filter_tpu_torch.pinn import bayes
 from b_pinn_kalman_filter_tpu_torch.pinn import losses as pinn_losses
@@ -76,24 +75,18 @@ def _batch(seed):
 
 
 def _eps(draw_rng, bparams):
-  """The standard normals JAX's ``sample_params(draw_rng, bparams)`` draws,
-  its body written out (with the fixture's CRC-32 ``hash``)."""
-  out = {}
-  for key in bparams:
-    leaves, treedef = jax.tree_util.tree_flatten(bparams[key]['mu'])
-    rngs = jax.random.split(jax.random.fold_in(
-        draw_rng, zlib.crc32(key.encode()) % (2 ** 31)), len(leaves))
-    out[key] = jax.tree_util.tree_unflatten(treedef, [
-        jax.random.normal(r, leaf.shape, leaf.dtype)
-        for r, leaf in zip(rngs, leaves)])
-  return out
+  """The standard normals JAX's ``sample_params(draw_rng, bparams)`` draws
+  (with the fixture's CRC-32 ``hash``), by ``port_parity.posterior_eps``."""
+  return port_parity.posterior_eps(draw_rng, bparams,
+                                   lambda key: zlib.crc32(key.encode()))
 
 
 @pytest.fixture(scope='module')
 def side():
   """The JAX side: configs, the randomised PINN's MOPED and prior-rho
-  posteriors, the optimizer, ``kl_loss`` and the train step jitted with
-  its loss's terms, noises and draw (each compiled once)."""
+  posteriors, the optimizer and its state's initialiser, ``kl_loss`` and
+  the train step jitted with its loss's terms, noises and draw (each
+  compiled once)."""
   from b_pinn_kalman_filter_tpu.pinn.pinn import PINN as JaxPINN
   with pytest.MonkeyPatch.context() as patch:
     patch.setattr(jax_bayes, 'hash', lambda key: zlib.crc32(key.encode()),
@@ -135,6 +128,7 @@ def side():
     yield types.SimpleNamespace(
         jax_config=jax_config, torch_config=torch_config, tx=tx,
         posteriors=posteriors,
+        init=port_parity.jax_state_init(tx, jax_config.model.ema_rate),
         kl=jax.jit(jax_bayes.kl_loss),
         step=jax.jit(step_and_terms,
                      compiler_options=port_parity.FAST_COMPILE))
@@ -154,8 +148,7 @@ def _port(side):
 
 
 def _jax_state(side):
-  return jax_state.create_train_state(side.posteriors[True], side.tx,
-                                      side.jax_config.model.ema_rate)
+  return side.init(side.posteriors[True])
 
 
 def _tensors(arrays):

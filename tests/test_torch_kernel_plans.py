@@ -1,6 +1,7 @@
 """The port's kernel plans: which K1 kernel a conv takes, its pixel boxes and
-split-K, K2's cluster, K3's tiles and channel split, and which K4 kernel
-an image takes.  Pure Python (no JAX, no compiler, no card).
+split-K, K2's cluster, the K2 JVP kernel's cluster and ring, K3's tiles and
+channel split, B1/B2's tiles, and which K4 kernel an image takes.  Pure
+Python (no JAX, no compiler, no card).
 
 The K1/K2 site shapes are those of the flagship U-Net
 (``vp/cifar10_ddpmpp_continuous``, batch 8), counted from
@@ -150,29 +151,54 @@ def test_groupnorm_plan_edges(shape, itemsize, want):
 
 
 @pytest.mark.parametrize('hc', NORM_SHAPES)
-def test_groupnorm_jvp_plan_sums_as_k2_does(hc):
-  """The K2 JVP kernel takes K2's cluster, threads, vector width and
-  thread columns, so its mu and r are K2's; it keeps x and dx on chip
-  where both slices fit beside 10 C + 4 G floats and a plane of row sums
-  (in bf16 at every main-path site, the 32x32x384 one at 227,840 of
-  232,448 bytes), else it reads them again."""
+def test_groupnorm_jvp_plan_fits_two_blocks_an_sm(hc):
+  """The K2 JVP kernel's plan at every main-path site, batches 8 and 256
+  (the bits/dim batch), bf16 and f32: two blocks fit on an SM (each with
+  the card's 1 KB of reserved shared memory); a cluster of up to 8 whose
+  blocks cover every pixel once, the least that keeps the slices on chip;
+  the ring's chunks cover a block's pixels; the grid is cluster x B."""
   H, C = hc
-  for itemsize in (2, 4):
-    k2_plan = k2.groupnorm_plan(H, H, C, 32, itemsize)
-    plan = k2.jvp_plan(H, H, C, 32, itemsize)
-    for key in ('cluster', 'threads', 'vec', 'q', 'slice_bytes'):
-      assert plan[key] == k2_plan[key]
-    rows = plan['threads'] // plan['q']
-    stat = 4 * ((rows * C + 10 * C + 4 * 32 + 3) // 4 * 4)
-    assert plan['on_chip'] == (stat + 2 * plan['slice_bytes']
-                               <= k2.SMEM_LIMIT)
-    assert plan['smem_bytes'] == stat + (2 * plan['slice_bytes']
-                                         if plan['on_chip'] else 0)
-    if itemsize == 2:
-      assert plan['on_chip']
-  if (H, C) == (32, 384):
-    assert k2.jvp_plan(H, H, C, 32, 2)['smem_bytes'] == 227840
-    assert not k2.jvp_plan(H, H, C, 32, 4)['on_chip']
+  for batch in (8, 256):
+    for itemsize in (2, 4):
+      plan = k2.jvp_plan(H, H, C, 32, itemsize, batch)
+      P = H * H
+      assert plan['smem_bytes'] <= k2.JVP_BLOCK_SMEM <= k2.SMEM_LIMIT
+      assert 2 * (plan['smem_bytes'] + k2.BLOCK_RESERVED) <= k2.SM_SMEM
+      cluster = plan['cluster']
+      assert cluster in (1, 2, 4, 8)
+      budget = k2.JVP_BLOCK_SMEM - plan['head_bytes']
+      stage = -(-plan['chunk_rows'] * C * itemsize // 128) * 128
+      assert plan['smem_bytes'] == plan['head_bytes'] + 2 * plan[
+          'stages'] * stage <= k2.JVP_BLOCK_SMEM
+      assert plan['on_chip'] == (2 * plan['chunks'] * stage <= budget)
+      assert cluster == k2.MAX_CLUSTER or plan['on_chip']
+      # The least cluster whose ring holds a block's slices; more blocks
+      # only while the grid stays within a wave and a block keeps
+      # MIN_SLICE_BYTES of x and dx.
+      fits = []
+      for c in (1, 2, 4, 8):
+        rows = -(-P // c)
+        chunk = min(rows, k2.JVP_CHUNK_BYTES // (C * itemsize))
+        fits.append(2 * -(-rows // chunk) * (
+            -(-chunk * C * itemsize // 128) * 128) <= budget)
+      least = next((c for c, f in zip((1, 2, 4, 8), fits) if f), 8)
+      assert cluster >= least
+      if cluster > least:
+        assert batch * cluster <= k2.NUM_SMS
+        assert 2 * C * itemsize * -(-P // cluster) >= k2.MIN_SLICE_BYTES
+      rows = plan['rows']
+      assert rows * cluster >= P > rows * (cluster - 1)
+      assert plan['chunks'] * plan['chunk_rows'] >= rows
+      assert plan['chunk_rows'] * C * itemsize <= k2.JVP_CHUNK_BYTES
+      assert 1 <= plan['stages'] <= min(plan['chunks'], k2.JVP_MAX_STAGES)
+      assert plan['on_chip'] == (plan['stages'] == plan['chunks'])
+      assert plan['vec'] * itemsize == 16 and plan['q'] == C // plan['vec']
+      assert plan['q'] * plan['rows_in_flight'] <= k2.JVP_THREADS
+      assert plan['blocks'] == cluster * batch
+      # In bf16 the slices stay on chip at every site but 32x32x256 and
+      # 32x32x384, whose images exceed 8 blocks' rings.
+      if itemsize == 2:
+        assert plan['on_chip'] == (H < 32 or C == 128)
 
 
 # (B, H, W, C) of the cost volume on the ukf path: 8 draws x batch 1.
@@ -226,6 +252,51 @@ def test_correlation_plan_on_the_ukf_path():
   got = [(k3.correlation_plan(*s)['strip'], k3.correlation_plan(*s)['split'],
           k3.correlation_plan(*s)['blocks']) for s in CORR_LEVELS]
   assert got == [(4, 1, 64), (4, 2, 64), (2, 4, 64), (1, 8, 64), (1, 8, 64)]
+
+
+# K3's backward (B1, B2) at the five FlowNet levels at batch 8 (the ukf's
+# draws) and 64 (a PINN train step), and at odd shapes.
+BWD_SHAPES = ([(b,) + level[1:] for b in (8, 64) for level in CORR_LEVELS]
+              + [(3, 13, 11, 24), (2, 11, 19, 40), (2, 5, 9, 1),
+                 (2, 5, 7, 3), (1, 1, 1, 1)])
+
+
+@pytest.mark.parametrize('shape', BWD_SHAPES)
+def test_correlation_bwd_plan_tiles_the_image_and_fits_two_blocks(shape):
+  """B1's and B2's plan: a tile that divides the image (each output pixel
+  computed by one block), channels split into equal runs of 16-byte
+  vectors, at most 256 threads, two blocks an SM (B2's halo of d is the
+  larger), and the grid's block count."""
+  B, H, W, C = shape
+  plan = k3.correlation_bwd_plan(*shape)
+  th, tw, strip = plan['th'], plan['tw'], plan['strip']
+  assert H % th == 0 and W % tw == 0 and tw % strip == 0
+  assert strip == (4 if W % 4 == 0 else 2 if W % 2 == 0 else 1)
+  split, cs = plan['split'], plan['cs']
+  assert cs * split == C and (split == 1 or cs % 4 == 0)
+  assert plan['threads'] == th * (tw // strip) * -(-cs // 4)
+  assert 1 <= plan['threads'] <= k3.MAX_THREADS
+  assert plan['smem_bytes'] == k3._bwd_smem(th, tw, strip, cs)
+  assert plan['smem_bytes'] <= k3.BWD_SMEM_BUDGET < k3.SMEM_LIMIT // 2
+  assert plan['tiles'] == (H // th) * (W // tw)
+  assert plan['blocks'] == B * plan['tiles'] * split
+  assert plan['vec'] == int(C % 4 == 0)
+
+
+def test_correlation_bwd_plan_on_the_pinn_path():
+  """At the FlowNet's levels the plan splits no channels.  At batch 64
+  the three largest levels take the largest blocks whose grid covers the
+  card's 132 SMs (256 blocks each), the two smallest a block an image; at
+  batch 8 no grid covers the card and the blocks keep near 128 threads
+  (96 and 64 at 4x4x96 and 2x2x128, whose channels allow no more)."""
+  for batch, blocks, threads in (
+      (64, [256, 256, 256, 64, 64], [256, 128, 64, 96, 64]),
+      (8, [64, 32, 16, 8, 8], [128, 128, 128, 96, 64])):
+    plans = [k3.correlation_bwd_plan(batch, *level[1:])
+             for level in CORR_LEVELS]
+    assert [p['blocks'] for p in plans] == blocks
+    assert [p['threads'] for p in plans] == threads
+    assert all(p['split'] == 1 for p in plans)
 
 
 @pytest.mark.parametrize('shape,want', [

@@ -1,5 +1,6 @@
 """The CUDA kernels (K1-K4, K3's backward, and K1's and K2's forward-mode
-rules with the K2 JVP kernel) against their plain versions, on the card.
+rules with the K2 JVP kernel) and their first card designs (the
+yardsticks) against their plain versions, on the card.
 
 Every test here carries the ``cuda`` marker and skips without a card.  The
 file imports nothing of JAX, so it also runs where JAX is not installed:
@@ -291,13 +292,17 @@ def test_correlation_stride_2_stays_plain(card):
 @pytest.mark.parametrize('shape', [
     (64, 32, 32, 16), (64, 16, 16, 32), (64, 8, 8, 64), (64, 4, 4, 96),
     (64, 2, 2, 128),           # the five FlowNet levels at batch 64
-    (3, 13, 11, 24),           # odd H and W, one ragged channel chunk
-    (2, 11, 19, 40),           # two channel chunks
+    (8, 32, 32, 16), (8, 16, 16, 32), (8, 8, 8, 64), (8, 4, 4, 96),
+    (8, 2, 2, 128),            # and at batch 8
+    (3, 13, 11, 24),           # odd H and W: one-pixel strips
+    (2, 11, 19, 40),           # a channel split of 20
     (2, 5, 9, 1),              # C = 1
+    (2, 5, 7, 3),              # C = 3, 5x7
 ])
 def test_correlation_backward_matches_plain(card, shape):
-  """B1 and B2 against their plain versions, each twice for its bits, and
-  one launch each."""
+  """B1 and B2 (csrc/correlation_bwd.cu, ``correlation_bwd_plan``) against
+  their plain versions, each twice for its bits, and one launch each; the
+  first card design (csrc/correlation_bwd_tile.cu, the yardstick) too."""
   d = torch.randn(shape[:3] + (49,), generator=card, device='cuda')
   g = torch.randn(shape, generator=card, device='cuda')
   for fn, plain in ((k3.correlation_df1, k3.correlation_df1_plain),
@@ -311,6 +316,8 @@ def test_correlation_backward_matches_plain(card, shape):
     assert got.shape == want.shape == shape
     assert _rel(got, want) <= TOL[torch.float32]
     assert torch.equal(got, again)       # a gather: no atomics
+    which = 'df1' if fn is k3.correlation_df1 else 'df2'
+    assert _rel(k3._gradient_tile(which, d, g), want) <= TOL[torch.float32]
 
 
 @pytest.mark.parametrize('shape', [(8, 16, 16, 32), (3, 13, 11, 24)])
@@ -399,13 +406,15 @@ def test_wrappers_refuse_forward_mode_tangents(card):
 
 
 # K1's and K2's sites in the flagship U-Net (batch 8, 32x32): K1 (H, W,
-# Cin, Cout) and K2 (H, W, C); K2's JVP takes its re-read branch at
-# 32x32x384 in f32 (x and dx do not both fit) and at (1, 64, 64, 512).
+# Cin, Cout) and K2 (H, W, C), every K2 site; K2's JVP streams x and dx
+# again for its output pass at 32x32x384 in f32 (they do not fit two
+# blocks an SM) and at (1, 64, 64, 512).
 JVP_CONV_SITES = [(8, 32, 32, 128, 128), (8, 32, 32, 384, 128),
                   (8, 16, 16, 256, 256), (8, 8, 8, 512, 256),
                   (8, 4, 4, 256, 256)]
-JVP_NORM_SITES = [(8, 32, 32, 128), (8, 32, 32, 384), (8, 16, 16, 256),
-                  (8, 8, 8, 512), (8, 4, 4, 256), (1, 64, 64, 512)]
+JVP_NORM_SITES = [(8, h, h, c) for h, c in (
+    (32, 128), (32, 256), (32, 384), (16, 128), (16, 256), (16, 384),
+    (16, 512), (8, 256), (8, 512), (4, 256), (4, 512))] + [(1, 64, 64, 512)]
 
 
 @pytest.mark.parametrize('dtype', DTYPES)
@@ -439,8 +448,9 @@ def test_conv3x3_jvp_matches_plain(card, shape, dtype):
 def test_groupnorm_act_jvp_matches_plain(card, shape, act, dtype):
   """The K2 JVP kernel (one launch, beside K2's) against
   ``groupnorm_act_jvp_plain`` and against the plain version's
-  forward-mode AD, with a tangent on x and on all three inputs; the
-  re-read branch where ``jvp_plan`` says so."""
+  forward-mode AD, with a tangent on x and on all three inputs (dscale
+  and dbias absent, then present); streamed twice where ``jvp_plan`` says
+  so; the same bits twice; the first card design (the yardstick) too."""
   C = shape[-1]
   x = (torch.randn(shape, generator=card, device='cuda') * 2 + 3).to(dtype)
   dx = torch.randn(shape, generator=card, device='cuda').to(dtype)
@@ -448,8 +458,9 @@ def test_groupnorm_act_jvp_matches_plain(card, shape, act, dtype):
   bias = 0.1 * torch.randn((C,), generator=card, device='cuda')
   ds = torch.randn((C,), generator=card, device='cuda')
   db = torch.randn((C,), generator=card, device='cuda')
-  plan = k2.jvp_plan(shape[1], shape[2], C, 32, x.element_size())
-  if shape == (1, 64, 64, 512) or (C == 384 and dtype == torch.float32):
+  plan = k2.jvp_plan(shape[1], shape[2], C, 32, x.element_size(), shape[0])
+  if shape == (1, 64, 64, 512) or (shape[1] == 32 and C == 384
+                                   and dtype == torch.float32):
     assert not plan['on_chip']
   with torch.no_grad():
     n, nj = k2.groupnorm_act.launches, k2.groupnorm_act_jvp.launches
@@ -474,6 +485,12 @@ def test_groupnorm_act_jvp_matches_plain(card, shape, act, dtype):
     # The same bits every run (the cluster's sums in a fixed order).
     again = k2.groupnorm_act_jvp(x, dx, scale, bias, None, None, 32, act)
     assert torch.equal(again, t)
+    t3_again = k2.groupnorm_act_jvp(x, dx, scale, bias, ds, db, 32, act)
+    assert torch.equal(t3_again, k2.groupnorm_act_jvp(x, dx, scale, bias, ds,
+                                                      db, 32, act))
+    old = k2._groupnorm_act_jvp_cluster(x, dx, scale, bias, None, None, 32,
+                                        act)
+    assert _rel(old, plain) <= TOL[dtype]
 
 
 def test_unet_drift_and_divergence_kernel_path_matches_plain_path(card):

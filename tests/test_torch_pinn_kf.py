@@ -86,8 +86,13 @@ def slice_pair(unsalted_jax_draws):
     """The 8 draws of ``rng``, PINN_KF's measurement from them, and the
     advected-field statistics of ``bayes.predict`` (its body, written out
     on the same draws)."""
-    draws = jax.vmap(jax_bayes.sample_params, in_axes=(0, None))(
-        jax.random.split(rng, 8), bparams)
+    def draw(key):
+      eps = port_parity.posterior_eps(key, bparams, jax_bayes.hash)
+      return {k: jax.tree_util.tree_map(
+          lambda m, r, e: m + jax_bayes.softplus(r) * e, bparams[k]['mu'],
+          bparams[k]['rho'], eps[k]) for k in bparams}
+
+    draws = jax.vmap(draw)(jax.random.split(rng, 8))
     flows, press = jax.vmap(lambda p: jax_model.apply(
         {'params': p}, f1, f2, x, y, t, size=(16, 16), train=False))(draws)
     flows = flows[-1]

@@ -20,7 +20,6 @@ import torch
 from b_pinn_kalman_filter_tpu.core import losses as jax_core_losses
 from b_pinn_kalman_filter_tpu.models import flownet as jax_flownet
 from b_pinn_kalman_filter_tpu.pinn import losses as jax_losses
-from b_pinn_kalman_filter_tpu.train import state as jax_state
 from b_pinn_kalman_filter_tpu_torch.core import losses
 from b_pinn_kalman_filter_tpu_torch.models import convert, flownet
 from b_pinn_kalman_filter_tpu_torch.pinn import losses as pinn_losses
@@ -92,8 +91,9 @@ def _adam(opt_state, label):
 
 @pytest.fixture(scope='module')
 def side():
-  """The JAX side: configs, model, randomised params, the optimizer and
-  the jitted train and eval steps (each compiled once)."""
+  """The JAX side: configs, model, randomised params, the optimizer, its
+  state's initialiser and the jitted train and eval steps (each compiled
+  once)."""
   from b_pinn_kalman_filter_tpu.pinn.pinn import PINN as JaxPINN
   jax_config, torch_config = _configs()
   model = JaxPINN(jax_config)
@@ -103,7 +103,7 @@ def side():
   jit = dict(compiler_options=port_parity.FAST_COMPILE)
   return types.SimpleNamespace(
       jax_config=jax_config, torch_config=torch_config, params=params,
-      tx=tx,
+      tx=tx, init=port_parity.jax_state_init(tx, jax_config.model.ema_rate),
       step=jax.jit(jax_losses.get_prelim_step_fn(jax_config, model, tx,
                                                  train=True), **jit),
       eval_step=jax.jit(jax_losses.get_prelim_step_fn(jax_config, model, tx,
@@ -111,9 +111,7 @@ def side():
 
 
 def _jax_state(side):
-  return jax_state.create_train_state(
-      jax.tree_util.tree_map(jnp.asarray, side.params), side.tx,
-      side.jax_config.model.ema_rate)
+  return side.init(jax.tree_util.tree_map(jnp.asarray, side.params))
 
 
 def test_two_prelim_steps_and_an_eval_step_match_jax(side):
