@@ -4,17 +4,21 @@
 The JAX package beside it is the reference: each module here keeps the name
 of its JAX counterpart, and the tests hold the two against each other.
 What is ported so far is the serving path and the training loop of the
-flagship config ``vp/cifar10_ddpmpp_continuous`` and, at ``pinn/pinn_pde``,
-PINN and B-PINN training, the ``ukf`` path and the simulator; ``python -m
+flagship config ``vp/cifar10_ddpmpp_continuous``, the training of
+``vp/nc_ddpmpp`` by the discrete DDPM loss, the inverse suite and, at
+``pinn/pinn_pde`` (FlowNet) and ``pinn/pinn_pde_lfn`` (LiteFlowNet), PINN
+and B-PINN training, the ``ukf`` path and the simulator; ``python -m
 b_pinn_kalman_filter_tpu_torch`` is the command line (``__main__.py``):
 
 * ``configs``  — attribute-dict copies of the JAX configs (same keys).
-* ``core``     — the SDEs, the predictor–corrector sampler, the DSM loss,
-                 the optimizer and the train and eval steps.
+* ``core``     — the SDEs, the samplers, the continuous DSM loss and the
+                 discrete SMLD and DDPM losses, the optimizer and the
+                 train and eval steps.
 * ``ops``      — hand-written Hopper kernels (3x3 conv, GroupNorm+SiLU,
                  FlowNet cost volume, Navier–Stokes step), each with its
                  plain PyTorch version beside it; the grid sampler.
-* ``models``   — the DDPM U-Net, FlowNet and PressureNet, their layers, the
+* ``models``   — the DDPM U-Net, FlowNet, LiteFlowNet and PressureNet,
+                 their layers, the
                  EMA helper, and the loaders of flax params and train
                  states (``convert``).
 * ``pinn``     — the PINN forward, its residual and training phases, and

@@ -4,8 +4,10 @@ Usage:
     from b_pinn_kalman_filter_tpu_torch import configs
     cfg = configs.get_config("vp/cifar10_ddpmpp_continuous")
 
-The configs of the ported paths: the flagship, ``pinn/pinn_pde``, and
-``vp/nc_ddpmpp`` with its three ``inverse/`` configs.
+The configs of the ported paths: the flagship, ``pinn/pinn_pde`` (the
+FlowNet-PINN), ``pinn/pinn_pde_lfn`` (the LiteFlowNet-PINN), and
+``vp/nc_ddpmpp`` (trained by the discrete DDPM loss) with its three
+``inverse/`` configs.
 """
 
 import importlib

@@ -1,16 +1,17 @@
-"""The continuous score-matching loss, the optimizer and the train and
-eval steps.
+"""The score-matching losses, the optimizer and the train and eval steps.
 
 Counterpart of the JAX package's ``core/losses.py``: ``get_optimizer``
 (Adam with linear warmup, global-norm clipping and coupled weight decay,
 with optax's semantics), ``MultiTransform`` (optax's ``multi_transform``
-over such optimizers), ``get_sde_loss_fn`` and ``get_step_fn``.  The
-SMLD and DDPM losses (``continuous=False``) are not ported yet
-(ROADMAP.md A.11).
+over such optimizers), the continuous loss ``get_sde_loss_fn``, the
+discrete losses ``get_smld_loss_fn`` (VE SDE) and ``get_ddpm_loss_fn`` (VP
+SDE), and ``get_step_fn``.
 
-Randomness comes from a ``torch.Generator``: the loss draws t, then z,
-then the dropout masks from it.  ``noise=(t, z)`` replaces the first two
-draws, so that a test can feed in the numbers another implementation drew.
+Randomness comes from a ``torch.Generator``: the continuous loss draws t,
+then z, then the dropout masks from it; the discrete losses draw the
+integer noise levels ``labels`` in [0, N), then z, then the masks.
+``noise=(t, z)`` or ``noise=(labels, z)`` replaces the first two draws, so
+that a test can feed in the numbers another implementation drew.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from b_pinn_kalman_filter_tpu_torch.core import sde as sde_lib
 from b_pinn_kalman_filter_tpu_torch.core.sde import batch_mul
 from b_pinn_kalman_filter_tpu_torch.models import registry as mutils
 from b_pinn_kalman_filter_tpu_torch.train.state import (AdamState, Params,
@@ -181,23 +183,101 @@ def get_sde_loss_fn(sde, model, train: bool, reduce_mean: bool = True,
   return loss_fn
 
 
+def _labels_and_noise(N: int, batch: torch.Tensor, generator, noise):
+  """(labels, z): ``noise`` where given, else labels uniform in [0, N)
+  then z ~ N(0, 1) of the batch's shape from ``generator``."""
+  if noise is not None:
+    labels, z = noise
+    return labels.to(batch.device), z.to(batch.device)
+  labels = torch.randint(0, N, (batch.shape[0],), generator=generator,
+                         device=batch.device)
+  return labels, torch.randn(batch.shape, generator=generator,
+                             device=batch.device)
+
+
+def get_smld_loss_fn(vesde, model, train: bool,
+                     reduce_mean: bool = False) -> Callable:
+  """The SMLD (NCSN) loss: ``loss_fn(params, batch, generator=None,
+  noise=None)``.  At the noise level ``labels`` (the model's input), sigma
+  is ``flip(discrete_sigmas)[labels]`` (the models take the sigmas in
+  descending order); the loss is the squared error of the score of
+  ``batch + sigma z`` against ``-z / sigma``, reduced over each image and
+  weighted by sigma**2, then its batch mean."""
+  if not isinstance(vesde, sde_lib.VESDE):
+    raise ValueError('SMLD training only works for VESDEs.')
+  sigmas_desc = torch.flip(vesde.discrete_sigmas, dims=(0,))
+  reduce_op = _reduce_op(reduce_mean)
+
+  def loss_fn(params: Params, batch: torch.Tensor,
+              generator: Optional[torch.Generator] = None,
+              noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+    model_fn = mutils.get_model_fn(model, train=train, params=params)
+    labels, z = _labels_and_noise(vesde.N, batch, generator, noise)
+    sigmas = sigmas_desc.to(batch.device)[labels]
+    scaled = batch_mul(sigmas, z)
+    score = model_fn(scaled + batch, labels, generator)
+    target = -batch_mul(1.0 / sigmas ** 2, scaled)
+    losses = torch.square(score - target)
+    losses = reduce_op(losses.reshape(losses.shape[0], -1)) * sigmas ** 2
+    return torch.mean(losses)
+
+  return loss_fn
+
+
+def get_ddpm_loss_fn(vpsde, model, train: bool,
+                     reduce_mean: bool = True) -> Callable:
+  """The discrete DDPM loss: ``loss_fn(params, batch, generator=None,
+  noise=None)``, the squared error of the model's output at
+  ``sqrt(alphas_cumprod[labels]) batch + sqrt(1 - alphas_cumprod[labels])
+  z`` (``labels`` its input) against z, reduced over each image, then its
+  batch mean."""
+  if not isinstance(vpsde, sde_lib.VPSDE):
+    raise ValueError('DDPM training only works for VPSDEs.')
+  reduce_op = _reduce_op(reduce_mean)
+
+  def loss_fn(params: Params, batch: torch.Tensor,
+              generator: Optional[torch.Generator] = None,
+              noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+    model_fn = mutils.get_model_fn(model, train=train, params=params)
+    labels, z = _labels_and_noise(vpsde.N, batch, generator, noise)
+    perturbed_data = (
+        batch_mul(vpsde.sqrt_alphas_cumprod.to(batch.device)[labels], batch)
+        + batch_mul(vpsde.sqrt_1m_alphas_cumprod.to(batch.device)[labels], z))
+    score = model_fn(perturbed_data, labels, generator)
+    losses = torch.square(score - z)
+    losses = reduce_op(losses.reshape(losses.shape[0], -1))
+    return torch.mean(losses)
+
+  return loss_fn
+
+
 def get_step_fn(sde, model, tx: Optimizer, train: bool,
                 reduce_mean: bool = False, continuous: bool = True,
                 likelihood_weighting: bool = False) -> Callable:
   """``step_fn(state, batch, generator=None, noise=None) -> (state,
-  loss)``.
+  loss)`` on the continuous loss, or with ``continuous`` False on the
+  SMLD loss for a VE SDE and the DDPM loss for a VP SDE (``ValueError``
+  for another SDE, and for ``likelihood_weighting``, which they lack).
 
   In training: the loss and its gradients under ``state.params``, one
   optimizer update, the EMA update and the step's increment, all into
   ``state`` in place.  In evaluation: the loss under ``state.ema_params``
   without gradients, ``state`` unchanged.
   """
-  if not continuous:
-    raise NotImplementedError(
-        'the SMLD and DDPM losses are not ported yet: ROADMAP.md A.11')
-  loss_fn = get_sde_loss_fn(sde, model, train, reduce_mean=reduce_mean,
-                            continuous=True,
-                            likelihood_weighting=likelihood_weighting)
+  if continuous:
+    loss_fn = get_sde_loss_fn(sde, model, train, reduce_mean=reduce_mean,
+                              continuous=True,
+                              likelihood_weighting=likelihood_weighting)
+  elif likelihood_weighting:
+    raise ValueError('Likelihood weighting is not supported for original '
+                     'SMLD/DDPM training.')
+  elif isinstance(sde, sde_lib.VESDE):
+    loss_fn = get_smld_loss_fn(sde, model, train, reduce_mean=reduce_mean)
+  elif isinstance(sde, sde_lib.VPSDE):
+    loss_fn = get_ddpm_loss_fn(sde, model, train, reduce_mean=reduce_mean)
+  else:
+    raise ValueError(f'Discrete training for {sde.__class__.__name__} is '
+                     'not recommended.')
 
   if train:
 

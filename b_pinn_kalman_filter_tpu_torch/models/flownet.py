@@ -15,7 +15,7 @@ package leaves them to XLA.  ``multiscale_data_mse`` and
 from __future__ import annotations
 
 import math
-from typing import List, Optional, Sequence
+from typing import List, Sequence, Tuple, Union
 
 import torch
 import torch.nn as nn
@@ -79,15 +79,18 @@ def resize_bilinear(x: Tensor, size: Sequence[int]) -> Tensor:
 
 
 class Conv(nn.Module):
-  """flax ``nn.Conv``: ``kernel`` (k, k, in, out) lecun-normal, ``bias``
-  zeros; symmetric ``padding`` (default k // 2, 'SAME' at stride 1)."""
+  """flax ``nn.Conv``: ``kernel`` (kh, kw, in, out) lecun-normal, ``bias``
+  zeros; ``size`` k or (kh, kw); symmetric ``padding`` p or (ph, pw)
+  (default (kh // 2, kw // 2), 'SAME' at stride 1 for odd sizes)."""
 
-  def __init__(self, in_ch: int, out_ch: int, size: int = 3, stride: int = 1,
-               padding: Optional[int] = None):
+  def __init__(self, in_ch: int, out_ch: int,
+               size: Union[int, Tuple[int, int]] = 3, stride: int = 1,
+               padding: Union[None, int, Tuple[int, int]] = None):
     super().__init__()
+    kh, kw = (size, size) if isinstance(size, int) else size
     self.stride = stride
-    self.padding = size // 2 if padding is None else padding
-    layers._param(self, 'kernel', (size, size, in_ch, out_ch), lecun_normal)
+    self.padding = (kh // 2, kw // 2) if padding is None else padding
+    layers._param(self, 'kernel', (kh, kw, in_ch, out_ch), lecun_normal)
     layers._param(self, 'bias', (out_ch,), layers.zeros_init)
 
   def forward(self, x):
@@ -164,20 +167,29 @@ class FeatureExtractor(nn.Module):
     return result
 
 
-class FlowUpsample(nn.Module):
-  """x2 upsampling of a flow field: the JAX package's grouped convolution
-  of the zero-dilated input (padding 2) with the UNflipped kernel
-  ``weight`` (4, 4, 1, 2), written as a transposed convolution, which
-  needs that kernel flipped."""
+class GroupedDeconv2x(nn.Module):
+  """x2 upsampling, one 4x4 filter a channel, no bias: the JAX package's
+  grouped convolution of the zero-dilated input (padding 2) with the
+  UNflipped ``weight`` (4, 4, 1, C), written as a transposed convolution
+  (stride 2, padding 1), which needs that kernel flipped."""
+
+  def __init__(self, channels: int):
+    super().__init__()
+    self.channels = channels
+    layers._param(self, 'weight', (4, 4, 1, channels), lecun_normal)
+
+  def forward(self, x):
+    w = torch.flip(self.weight, dims=(0, 1)).permute(3, 2, 0, 1)  # (C,1,4,4)
+    return _nhwc(F.conv_transpose2d(_nchw(x), w, stride=2, padding=1,
+                                    groups=self.channels))
+
+
+class FlowUpsample(GroupedDeconv2x):
+  """x2 upsampling of a flow field: :class:`GroupedDeconv2x` of its two
+  channels."""
 
   def __init__(self):
-    super().__init__()
-    layers._param(self, 'weight', (4, 4, 1, 2), lecun_normal)
-
-  def forward(self, flow):
-    w = torch.flip(self.weight, dims=(0, 1)).permute(3, 2, 0, 1)  # (2,1,4,4)
-    return _nhwc(F.conv_transpose2d(_nchw(flow), w, stride=2, padding=1,
-                                    groups=2))
+    super().__init__(2)
 
 
 class Matching(nn.Module):

@@ -22,16 +22,24 @@ from torch.func import functional_call
 from b_pinn_kalman_filter_tpu_torch.models.flownet import (FlowNet,
                                                            PressureNet,
                                                            project)
+from b_pinn_kalman_filter_tpu_torch.models.liteflownet import LiteFlowNet
 
 
 def get_flow_model(config, kernels: bool = True) -> nn.Module:
-  """The flow network of ``config.model.arch``; only 'flownet' is ported.
-  ``kernels`` selects the cost volume's kernel or its plain version."""
+  """The flow network of ``config.model.arch``: 'flownet' or
+  'liteflownet'.  ``kernels`` selects the cost volume's kernel or its
+  plain version.  'unet' and 'mlp' raise: neither takes the PINN's ``(f1,
+  f2, x, y, t, size)`` call, and the JAX package's PINN crashes on them
+  too."""
   arch = config.model.arch
   if arch == 'flownet':
     return FlowNet(config, kernels)
-  if arch in ('liteflownet', 'unet', 'mlp'):
-    raise NotImplementedError(f'model.arch {arch!r} is not ported yet')
+  if arch == 'liteflownet':
+    return LiteFlowNet(config, kernels)
+  if arch in ('unet', 'mlp'):
+    raise NotImplementedError(
+        f'model.arch {arch!r} is not ported as a flow model: it does not '
+        'take the PINN\'s (f1, f2, x, y, t) call')
   raise NotImplementedError(f'unknown model.arch {arch!r}')
 
 

@@ -4,7 +4,9 @@
     python3 chip_smoke.py [--steps N] [--requests R] [--cycles C]
                           [--train-steps T] [--prelim-steps P]
                           [--pinn-steps Q] [--bpinn-steps R]
-                          [--fixed-steps F] [--seed S] [--out DIR]
+                          [--fixed-steps F] [--lfn-pinn-steps Q2]
+                          [--lfn-bpinn-steps R2] [--nc-train-steps T2]
+                          [--seed S] [--out DIR]
 
 Run from the root of a checkout; it needs one CUDA card, ``nvcc`` and
 ``nvidia-smi``, and imports nothing of JAX or the JAX package.  Phases:
@@ -31,30 +33,31 @@ Run from the root of a checkout; it needs one CUDA card, ``nvcc`` and
    f32 at every shape the ``ukf`` path launches them with (the five FlowNet
    levels of ``pinn/pinn_pde`` with the 8 B-PINN draws folded into the
    batch; the 129 sigma points and the rollout's one image at 64x64) and at
-   an odd shape, K3 also at batch 1, and time both as in phase 3, each
-   beside its first card design, the yardstick (K3: one block per image and
-   8x8 tile, csrc/correlation_tile.cu, also at batch 1 as the draws were
-   launched one by one; K4: three staged launches, csrc/ns_step_staged.cu);
-   K3 runs twice and must give the same bits (no single PyTorch call
-   computes either function);
+   an odd shape, K3 also at batch 1, and time both as in phase 3 (K3 at the
+   ukf's shapes only), each beside its first card design, the yardstick
+   (K3: one block per image and 8x8 tile, csrc/correlation_tile.cu; K4:
+   three staged launches, csrc/ns_step_staged.cu); K3 runs twice and must
+   give the same bits (no single PyTorch call computes either function);
 5. a full-width flagship forward with every parameter randomised: the
    kernel path against the plain path, in f32 and bf16, each timed on the
    host's clock and in device time;
-6. serve ``--requests`` sample requests through ``run_lib.sample`` (batch 8,
+6. serve ``--requests`` (default 1) sample requests through
+   ``run_lib.sample`` (batch 8,
    N = ``--steps``, default the config's 1000, bf16) with the launch counts
    set to 0 before and read after; the counts must be the per-forward site
    counts times N times the requests, every K1 launch the wgmma kernel's,
    and the samples finite; then profile one steady sampler step
    (``torch.profiler``): host and device-busy seconds, idle share, top
    device ops;
-7. the training step (``--train-steps``, default 20): one step's loss and
+7. the training step (``--train-steps``, default 10): one step's loss and
    gradients at the flagship's full width and batch 128, kernel path
    against plain path (the same randomised parameters, batch, t, z and
    dropout generator), in f32 (TF32 off) and bf16, each leaf's gradient
    within the limit; K1 as the data gradient (dy through the flipped
    kernel) at every site shape at batch 128, against its plain version
    in f32 and bf16 and timed in bf16 beside ``torch.nn.grad.conv2d_input``;
-   then ``run_lib.train`` at batch 128 in bf16 for steps 0..20 with the
+   then ``run_lib.train`` at batch 128 in bf16 for steps
+   0..``--train-steps`` with the
    cadence cut so that log, eval, the preemption checkpoint and a snapshot
    (sampling at N = 100) fire, the launch counts set to 0 before
    and read after (K1: per step every forward site and every data-gradient
@@ -77,9 +80,9 @@ Run from the root of a checkout; it needs one CUDA card, ``nvcc`` and
    cycle's measurement two ways, with the draws vmapped (the port's) and
    one ``functional_call`` after another (the structure before, kept here
    as the yardstick), on the same draws: their outputs compared, their
-   host seconds, and each under ``torch.profiler`` (host and device-busy
-   seconds, idle share, device ops, top ops), and the filter profiled
-   likewise;
+   host seconds, and the vmapped one under ``torch.profiler`` (host and
+   device-busy seconds, idle share, device ops, top ops), and the filter
+   profiled likewise;
 9. PINN phase 1 (``pinn/pinn_pde`` at full width: batch 64, 64x64,
    FlowNet levels 16..128, f32, TF32 off): K3's backward (B1 and B2,
    csrc/correlation_bwd.cu) against its plain versions at the five level
@@ -87,12 +90,13 @@ Run from the root of a checkout; it needs one CUDA card, ``nvcc`` and
    and 5x9), beside its first card design (csrc/correlation_bwd_tile.cu,
    the yardstick), each run twice for its bits, and
    one second-order product against autograd of the plain cost volume,
-   all timed as in phase 3; one prelim step's loss and gradients, kernel
+   timed as in phase 3 at the batch-64 shapes; one prelim step's loss and
+   gradients, kernel
    path against plain path (the same randomised parameters, batch, mask
    and noise), every leaf within the limit of the largest leaf's
    gradient; then ``pinn_lib.train_prelim`` on the synthetic PDE data
    (rolled out by K4 at 200x128 into an empty data directory) for steps
-   0..``--prelim-steps`` (default 20) with the cadence cut so that log,
+   0..``--prelim-steps`` (default 10) with the cadence cut so that log,
    eval, the preemption checkpoint and a snapshot fire, the launch counts
    set to 0 before and read after (K3: per train step 5 forward, 5 B1 and
    5 B2 launches, per eval 5 forward; K4: one per rollout frame); steady
@@ -111,7 +115,7 @@ Run from the root of a checkout; it needs one CUDA card, ``nvcc`` and
    by stage of the residual (forward, first and second derivatives,
    parameter gradient), by level, for a train step and an eval step; then
    ``pinn_lib.train``: phase 1 for steps 0..2, phase 2 for steps
-   2..2 + ``--pinn-steps`` (default 6) with the cadence cut so that log,
+   2..2 + ``--pinn-steps`` (default 4) with the cadence cut so that log,
    eval, the ``checkpoint_pinn`` preemption checkpoint and a snapshot fire
    in phase 2, the launch counts set to 0 before and read after (against
    the step's and the eval's counts); checks: finite losses, every leaf
@@ -131,7 +135,7 @@ Run from the root of a checkout; it needs one CUDA card, ``nvcc`` and
    0..2, phase 2 for 2..4) and ``train_bpinn`` from its last snapshot:
    first its step 0 alone (at lr 0: mu must equal the snapshot's
    ``ema_params`` bit for bit, rho ``inv_softplus(delta |w|)``), then
-   steps 0..``--bpinn-steps`` (default 10) with log, eval, the preemption
+   steps 0..``--bpinn-steps`` (default 6) with log, eval, the preemption
    checkpoint and a snapshot firing, the launch counts set to 0 before and
    read after; checks: finite losses, every mu and rho leaf moved, both
    groups' Adam counts, the steady step's seconds and samples/s, the
@@ -143,7 +147,24 @@ Run from the root of a checkout; it needs one CUDA card, ``nvcc`` and
    frames under the bootstrapped mu; and the command line, ``python -m
    b_pinn_kalman_filter_tpu_torch --mode ukf --ckptdir <the B-PINN
    snapshot>`` in a subprocess;
-12. the inverse suite at ``inverse/nc_ddpmpp_inpaint_dps``'s full width
+12. the LiteFlowNet-PINN (``pinn/pinn_pde_lfn`` at full width: batch 64,
+   64x64, f32): K3 at its three stride-1 levels (6, 5, 4: 2x2x192,
+   4x4x128, 8x8x96) at batch 64 and 8, and B1 and
+   B2 at batch 64 with the second-order product, against their plain
+   versions and timed as in phase 3; one forward of the cascade, kernel
+   path against plain path (every flow, 3 K3 launches, one a level); one
+   prelim loss's gradients kernel path against plain path (3 K3, 3 B1, 3
+   B2 launches); three steady prelim steps timed (seconds, samples/s,
+   peak memory); one phase-2 loss kernel path against plain path (its
+   launches by level; the LiteFlowNet reads no x, y, t, so the residual
+   reaches the cost volumes at first order only); ``pinn_lib.train``
+   (phase 1 for steps 0..2, phase 2 for 2..2 + ``--lfn-pinn-steps``,
+   default 4, profiled, a resume); the B-PINN pipeline as in phase 11
+   (the gradient check, ``train_bpinn`` from a PINN snapshot for
+   ``--lfn-bpinn-steps``, default 4, not profiled, the MOPED bootstrap
+   bit for bit, ``ukf_lib.run`` from its snapshot for 3 cycles, ``--mode ukf
+   --config pinn/pinn_pde_lfn`` in a subprocess; not the simulator);
+13. the inverse suite at ``inverse/nc_ddpmpp_inpaint_dps``'s full width
    (the NC U-Net: nf 128, ch_mult (1,2,2,2), 4 res blocks, attention at
    16^2, 64x64x1, batch 16, every parameter randomised): the U-Net's K1
    and K2 sites from one forward, K1, K1 as the data gradient and K2
@@ -157,11 +178,15 @@ Run from the root of a checkout; it needs one CUDA card, ``nvcc`` and
    launches, peak memory, the three files), the request again on the
    built model and one guided evaluation under ``torch.profiler``; the
    controlled sampler by RK45 (NFE, status, seconds); DPS by ``fixed`` at
-   ``--fixed-steps`` (default 25 of the reference's 5000);
+   ``--fixed-steps`` (default 10 of the reference's 5000);
    ``run_lib.sample`` at the flagship by DPM-Solver (batch 8, 20 steps);
    and ``python -m b_pinn_kalman_filter_tpu_torch --mode inverse`` in a
-   subprocess;
-13. the flagship's ``eval`` and ``sample`` modes: K1's forward-mode term
+   subprocess; and before those, ``run_lib.train`` at ``vp/nc_ddpmpp``
+   (the same U-Net, batch 64, bf16) through the discrete DDPM loss for
+   steps 0..``--nc-train-steps`` (default 4; no snapshot sampling), with
+   its K1, K1 data-gradient and K2 launches a step, losses, step seconds
+   and peak memory;
+14. the flagship's ``eval`` and ``sample`` modes: K1's forward-mode term
    (K1 on the tangent) and the K2 JVP kernel (csrc/groupnorm_jvp.cu)
    against their plain versions at every flagship site (batch 8, f32 and
    bf16), timed in bf16 as in phase 3 beside ``torch.func.jvp`` of
@@ -180,15 +205,17 @@ Run from the root of a checkout; it needs one CUDA card, ``nvcc`` and
    bpd kernel path against plain path in f32 (within 1e-3, the ODE at
    rtol = atol = 1e-3); then ``--mode sample --ckptdir`` (batch 8, N =
    100) and ``--mode eval`` (the loss) in subprocesses;
-14. print the kernel table as one JSON line (every kernel of the paths and
+15. print the kernel table as one JSON line (every kernel of the paths and
    every yardstick beside it; K3's and K3 backward's rows also carry their
-   phase-2 and B-PINN launches, device ms and bounds a step; K1's, K1 data
-   gradient's and K2's their DPS guided evaluation's and request's; K1
-   JVP's and K2 JVP's launches over the evaluate run and an evaluation),
+   phase-2 and B-PINN launches, device ms and bounds a step, and their
+   LiteFlowNet numbers (``lfn_*``); K1's, K1 data gradient's and K2's
+   their DPS guided evaluation's and request's and their ``vp/nc_ddpmpp``
+   train step's (``nc_train_*``); K1 JVP's and K2 JVP's launches over the
+   evaluate run and an evaluation),
    then the ``{"ok": true, ...}`` line.  With ``--out DIR`` the per-shape
    details go to ``DIR/chip_smoke.json``.
 
-Error limits (relative to max |reference|), in phases 3 to 5, 7 and 9 to 13:
+Error limits (relative to max |reference|), in phases 3 to 5, 7 and 9 to 14:
 f32 1e-4 (K3 at third order 1e-5); bf16 3e-2, the bound
 tests/test_winograd.py holds bf16 Winograd to.
 
@@ -234,7 +261,7 @@ from b_pinn_kalman_filter_tpu_torch.ops import ns_step as k4
 from b_pinn_kalman_filter_tpu_torch.pinn import bayes, pinn_lib
 from b_pinn_kalman_filter_tpu_torch.pinn import losses as pinn_losses
 from b_pinn_kalman_filter_tpu_torch.pinn.pinn import (
-    PINN, equation_mse_from_outputs)
+    PINN, equation_mse, equation_mse_from_outputs)
 from b_pinn_kalman_filter_tpu_torch.pinn.pinn_lib import init_pinn
 from b_pinn_kalman_filter_tpu_torch.train import checkpoint as ckpt_lib
 from b_pinn_kalman_filter_tpu_torch.train import run_lib
@@ -330,12 +357,20 @@ TRACE_LEADS = []
 T_START = time.time()
 
 
+def averages(prof):
+  """``prof.key_averages()``, aggregated once a trace (a phase-2 step's
+  trace holds some 300,000 events)."""
+  if not hasattr(prof, 'bpkf_averages'):
+    prof.bpkf_averages = prof.key_averages()
+  return prof.bpkf_averages
+
+
 def device_ops(prof):
   """The device's own records in a trace, summed by name (kernels,
   copies): not the host ops that launched them, whose device times would
   count each kernel twice, nor the profiler's step range, which it also
   draws on the device's timeline."""
-  return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+  return [e for e in averages(prof) if e.device_type == DeviceType.CUDA
           and not e.key.startswith('ProfilerStep')]
 
 
@@ -674,9 +709,10 @@ def corr_bound(shape):
                torch.float32)
 
 
-def check_corr(shape, seed):
-  """K3 against its plain version at (B, H, W, C), f32, beside the tile
-  kernel (its first card design) in turns; K3 run twice for its bits."""
+def check_corr(shape, seed, yardstick=True, timed=True):
+  """K3 against its plain version at (B, H, W, C), f32, with
+  ``yardstick`` the tile kernel (its first card design) too; K3 run twice
+  for its bits; with ``timed`` each timed, in turns."""
   B, H, W, C = shape
   g = torch.Generator(device='cuda').manual_seed(seed)
   f1 = torch.randn(shape, generator=g, device='cuda')
@@ -684,14 +720,18 @@ def check_corr(shape, seed):
   with torch.inference_mode():
     got = k3.correlation(f1, f2)
     again = k3.correlation(f1, f2)
-    tile = k3._correlation_tile(f1, f2)
     want = k3.correlation_plain(f1, f2)
     torch.cuda.synchronize()
     abs_err, rel = rel_err(got, want)
-    row = timings(lambda: k3.correlation(f1, f2),
-                  lambda: k3.correlation_plain(f1, f2),
-                  prev=lambda: k3._correlation_tile(f1, f2))
-  row['prev_abs_err'], row['prev_rel_err'] = rel_err(tile, want)
+    row = {}
+    if timed:
+      row = timings(lambda: k3.correlation(f1, f2),
+                    lambda: k3.correlation_plain(f1, f2),
+                    prev=(lambda: k3._correlation_tile(f1, f2)) if yardstick
+                    else None)
+    if yardstick:
+      row['prev_abs_err'], row['prev_rel_err'] = rel_err(
+          k3._correlation_tile(f1, f2), want)
   row['same_bits_twice'] = bool(torch.equal(got, again))
   row['plan'] = k3.correlation_plan(*shape)
   row['bound_ms'], row['bound_by'] = corr_bound(shape)
@@ -742,8 +782,8 @@ def flow_kernel_phase(seed):
   its yardstick.  Returns (rows, per-cycle totals, failures): a cycle runs
   K3 once per FlowNet level at batch 8 (the draws folded in) and K4 once
   on the 129 sigma points.  The yardstick's totals are taken at the same
-  shapes (``prev_ms``) and, for K3, also as the draws were launched before
-  they were vmapped, 8 launches per level at batch 1 (``prev_ms_b1``)."""
+  shapes (``prev_ms``).  K3 at batch 1 and at the odd shape is checked,
+  not timed."""
   config = configs.get_config(UKF_CONFIG)
   size = config.data.image_size
   n = config.kf.patch_size ** 2
@@ -760,18 +800,24 @@ def flow_kernel_phase(seed):
                               ('ns_step_fused', check_ns, ns_shapes)):
     mine = []
     for i, (shape, per_cycle) in enumerate(shapes):
-      row = check(shape, seed + i)
+      timed = name == 'ns_step_fused' or per_cycle > 0
+      row = (check(shape, seed + i) if timed else
+             check(shape, seed + i, timed=False))
       row.update(kernel=name, shape=list(shape), dtype='float32',
                  per_cycle=per_cycle, tol=TOL[torch.float32])
       mine.append(row)
-      share = row['bound_ms'] / row['ms']
+      times = ''
+      if timed:
+        share = row['bound_ms'] / row['ms']
+        times = (f' | kernel {row["ms"]:.4f} ms (call {row["call_ms"]:.4f}) '
+                 f'yardstick {row["prev_ms"]:.4f} plain '
+                 f'{row["plain_ms"]:.4f} bound {row["bound_ms"]:.6f} '
+                 f'({row["bound_by"]}; '
+                 + (f'{share:.3f} of the kernel time' if share <= 1 else
+                    'kernel under the HBM bound: inputs from L2') + ')')
       log(f'  {name} {shape} x{per_cycle} abs {row["max_abs_err"]:.3e} '
-          f'rel {row["rel_err"]:.3e} | kernel {row["ms"]:.4f} ms (call '
-          f'{row["call_ms"]:.4f}) yardstick {row["prev_ms"]:.4f} (rel '
-          f'{row["prev_rel_err"]:.1e}) plain {row["plain_ms"]:.4f} bound '
-          f'{row["bound_ms"]:.6f} ({row["bound_by"]}; '
-          + (f'{share:.3f} of the kernel time' if share <= 1 else
-             'kernel under the HBM bound: inputs from L2') + ')'
+          f'rel {row["rel_err"]:.3e} yardstick rel '
+          f'{row["prev_rel_err"]:.1e}{times}'
           + (f' plan {row["plan"]}' if 'plan' in row else '')
           + ('' if row.get('same_bits_twice', True) else ' NOT BITWISE'))
       for key in ('rel_err', 'prev_rel_err'):
@@ -779,24 +825,21 @@ def flow_kernel_phase(seed):
           failures.append(f'{name} {shape}: {key} {row[key]:.3e}')
       if not row.get('same_bits_twice', True):
         failures.append(f'{name} {shape}: two runs differ')
-    total = {k: sum(r[k] * r['per_cycle'] for r in mine)
+    total = {k: sum(r[k] * r['per_cycle'] for r in mine if r['per_cycle'])
              for k in ('ms', 'plain_ms', 'bound_ms', 'prev_ms')}
     by = collections.Counter()
     for r in mine:
-      by[r['bound_by']] += r['bound_ms'] * r['per_cycle']
+      if r['per_cycle']:
+        by[r['bound_by']] += r['bound_ms'] * r['per_cycle']
     total.update(bound_by=by.most_common(1)[0][0], library_ms=None,
                  max_abs_err=max(r['max_abs_err'] for r in mine),
                  prev_abs_err=max(r['prev_abs_err'] for r in mine))
-    if name == 'correlation':
-      total['prev_ms_b1'] = draws * sum(r['prev_ms'] for r in mine
-                                        if r['shape'][0] == 1)
     totals[name] = total
     rows += mine
   c, k = totals['correlation'], totals['ns_step_fused']
   log(f'  per cycle (device ms): K3 {c["ms"]:.4f} in {len(levels)} launches '
       f'at batch {draws} vs tile kernel {c["prev_ms"]:.4f} at the same '
-      f'shapes and {c["prev_ms_b1"]:.4f} in {len(levels) * draws} launches '
-      f'at batch 1; bound {c["bound_ms"]:.6f}.  K4 {k["ms"]:.4f} vs staged '
+      f'shapes; bound {c["bound_ms"]:.6f}.  K4 {k["ms"]:.4f} vs staged '
       f'{k["prev_ms"]:.4f}; bound {k["bound_ms"]:.6f}')
   return rows, totals, failures
 
@@ -1162,9 +1205,10 @@ def train_phase(steps, train_steps, per_forward, seed, workdir):
 PRELIM_CONFIG = 'pinn/pinn_pde'
 
 
-def check_corr_bwd(shape, seed):
+def check_corr_bwd(shape, seed, yardstick=True, timed=True):
   """K3's backward at (B, H, W, C), f32: B1 and B2 against their plain
-  versions (each kernel twice for its bits) and timed; one second-order
+  versions (each kernel twice for its bits), with ``yardstick`` the first
+  card design too, with ``timed`` each timed in turns; one second-order
   product, ``autograd.grad`` of ``((df1 + df2) * r).sum()`` taken with
   ``create_graph``, in f1, f2 and dout, against autograd of the plain
   cost volume."""
@@ -1178,14 +1222,17 @@ def check_corr_bwd(shape, seed):
       ('df2', k3.correlation_df2, k3.correlation_df2_plain)):
     with torch.inference_mode():
       got, again, want = fn(d, a), fn(d, a), plain(d, a)
-      old = k3._gradient_tile(name, d, a)
       torch.cuda.synchronize()
       abs_err, rel = rel_err(got, want)
-      prev_abs, prev_rel = rel_err(old, want)
-      times = timings(lambda: fn(d, a), lambda: plain(d, a),
-                      prev=lambda: k3._gradient_tile(name, d, a))
+      times = {}
+      if timed:
+        times = timings(lambda: fn(d, a), lambda: plain(d, a),
+                        prev=(lambda: k3._gradient_tile(name, d, a))
+                        if yardstick else None)
+      if yardstick:
+        times['prev_abs_err'], times['prev_rel_err'] = rel_err(
+            k3._gradient_tile(name, d, a), want)
     row[name] = dict(times, max_abs_err=abs_err, rel_err=rel,
-                     prev_abs_err=prev_abs, prev_rel_err=prev_rel,
                      same_bits_twice=bool(torch.equal(got, again)))
   f1, f2, r = (torch.randn(shape, generator=g, device='cuda')
                for _ in range(3))
@@ -1204,10 +1251,12 @@ def check_corr_bwd(shape, seed):
   row['bound_ms'], row['bound_by'] = bound(
       2 * 49 * C * pixels, (49 + 2 * C) * pixels * 4, torch.float32)
   for k in ('ms', 'call_ms', 'plain_ms', 'prev_ms'):
-    row[k] = row['df1'][k] + row['df2'][k]
+    if k in row['df1']:
+      row[k] = row['df1'][k] + row['df2'][k]
   row['bound_ms'] *= 2
   for k in ('max_abs_err', 'rel_err', 'prev_abs_err', 'prev_rel_err'):
-    row[k] = max(row['df1'][k], row['df2'][k])
+    if k in row['df1']:
+      row[k] = max(row['df1'][k], row['df2'][k])
   plan = k3.correlation_bwd_plan(*shape)
   row['plan'] = {k: plan[k] for k in ('th', 'tw', 'strip', 'split', 'cs',
                                       'threads', 'blocks', 'smem_bytes')}
@@ -1216,10 +1265,11 @@ def check_corr_bwd(shape, seed):
 
 def corr_bwd_phase(seed):
   """K3's backward at the prelim step's five level shapes at batch 64
-  (one B1 and one B2 launch each a step), at the same levels at batch 8
-  (the ukf's draws) and at odd shapes (C = 1 and 3, H and W not multiples
-  of 8), each beside the first card design (8x8 tiles, the
-  yardstick).  Returns (rows, per-step totals, failures)."""
+  (one B1 and one B2 launch each a step), timed beside the first card
+  design (8x8 tiles, the yardstick), and checked at the same levels at
+  batch 8 and at odd shapes (C = 1 and 3, H and W not multiples of 8),
+  the yardstick too, not timed.  Returns (rows, per-step totals,
+  failures)."""
   config = configs.get_config(PRELIM_CONFIG)
   size, batch = config.data.image_size, config.training.batch_size
   levels = [(size >> (i + 1), c)
@@ -1230,16 +1280,17 @@ def corr_bwd_phase(seed):
   rows, failures = [], []
   tol = TOL[torch.float32]
   for i, (shape, per_step) in enumerate(shapes):
-    row = check_corr_bwd(shape, seed + i)
+    row = check_corr_bwd(shape, seed + i, timed=per_step > 0)
     row.update(shape=list(shape), per_step=per_step, tol=tol)
     rows.append(row)
+    times = ('' if not per_step else
+             f' | kernels {row["ms"]:.4f} ms (df1 {row["df1"]["ms"]:.4f}, '
+             f'df2 {row["df2"]["ms"]:.4f}; calls {row["call_ms"]:.4f}) first '
+             f'design {row["prev_ms"]:.4f} plain {row["plain_ms"]:.4f} bound '
+             f'{row["bound_ms"]:.6f} ({row["bound_by"]})')
     log(f'  B1+B2 {shape} x{per_step} rel df1 {row["df1"]["rel_err"]:.3e} '
         f'df2 {row["df2"]["rel_err"]:.3e} second order '
-        f'{row["second_order_rel_err"]:.3e} | kernels {row["ms"]:.4f} ms '
-        f'(df1 {row["df1"]["ms"]:.4f}, df2 {row["df2"]["ms"]:.4f}; calls '
-        f'{row["call_ms"]:.4f}) first design {row["prev_ms"]:.4f} plain '
-        f'{row["plain_ms"]:.4f} bound {row["bound_ms"]:.6f} '
-        f'({row["bound_by"]}) plan {row["plan"]}')
+        f'{row["second_order_rel_err"]:.3e}{times} plan {row["plan"]}')
     for key in ('df1', 'df2'):
       for err in ('rel_err', 'prev_rel_err'):
         if not row[key][err] <= tol:
@@ -1250,7 +1301,7 @@ def corr_bwd_phase(seed):
     if not row['second_order_rel_err'] <= tol:
       failures.append(f'correlation second order {shape}: rel '
                       f'{row["second_order_rel_err"]:.3e}')
-  total = {k: sum(r[k] * r['per_step'] for r in rows)
+  total = {k: sum(r[k] * r['per_step'] for r in rows if r['per_step'])
            for k in ('ms', 'call_ms', 'plain_ms', 'bound_ms', 'prev_ms')}
   total.update(bound_by='bytes', library_ms=None,
                max_abs_err=max(r['max_abs_err'] for r in rows),
@@ -1259,11 +1310,6 @@ def corr_bwd_phase(seed):
       f'{total["ms"]:.4f} in {2 * len(config.model.feature_nums)} launches, '
       f'first design {total["prev_ms"]:.4f}, plain {total["plain_ms"]:.4f}, '
       f'bound {total["bound_ms"]:.6f}')
-  small = [r for r in rows if r['shape'][0] == 8]
-  log(f'  the same levels at batch 8 (device ms): B1+B2 kernels '
-      f'{sum(r["ms"] for r in small):.4f}, first design '
-      f'{sum(r["prev_ms"] for r in small):.4f}, bound '
-      f'{sum(r["bound_ms"] for r in small):.6f}')
   return rows, total, failures
 
 
@@ -1282,13 +1328,15 @@ def prelim_batch(config, seed):
   return batch, mask, noise
 
 
-def prelim_grad_phase(seed):
-  """One prelim loss's gradients at full width, kernel path (K3 and its
-  backward) against plain path (the plain cost volume under autograd):
-  the same randomised parameters, batch, mask and noise.  The loss within
-  the limit of itself, every leaf within the limit of the largest leaf's
-  gradient.  Returns (report, failures)."""
-  config = configs.get_config(PRELIM_CONFIG)
+def prelim_grad_phase(seed, name=None):
+  """One prelim loss's gradients at full width of the config ``name``
+  (default ``PRELIM_CONFIG``), kernel path (K3 and its backward) against
+  plain path (the plain cost volume under autograd): the same randomised
+  parameters, batch, mask and noise.  The loss within the limit of
+  itself, every leaf within the limit of the largest leaf's gradient; the
+  kernel path's K3, B1 and B2 launches a step, one of each a level on K3.
+  Returns (report, failures)."""
+  config = configs.get_config(name or PRELIM_CONFIG)
   models = {}
   for path, kernels in (('kernel', True), ('plain', False)):
     models[path] = PINN(config, kernels=kernels).cuda()
@@ -1297,9 +1345,12 @@ def prelim_grad_phase(seed):
   results = {}
   for path, model in models.items():
     params = dict(model.named_parameters())
+    reset_counts()
     loss, v_loss, p_loss = pinn_losses.get_prelim_loss_fn(config, model)(
         params, mask, batch, noise=noise)
     grads = torch.autograd.grad(loss, list(params.values()))
+    if path == 'kernel':
+      step_launches = flow_counts()
     results[path] = ([float(v.detach()) for v in (loss, v_loss, p_loss)],
                      dict(zip(params, grads)))
   (k_losses, k_grads), (p_losses, p_grads) = (results['kernel'],
@@ -1314,21 +1365,27 @@ def prelim_grad_phase(seed):
   worst_own = max(own_errs, key=own_errs.get)
   finite = all(bool(torch.isfinite(v).all()) for v in k_grads.values())
   tol = TOL[torch.float32]
+  levels = k3_levels(config)
+  want_step = {kernel: levels for kernel, _ in FLOW_KERNELS}
   out = dict(losses_kernel=k_losses, losses_plain=p_losses,
              loss_rel=loss_rel, max_leaf_rel=leaf_errs[worst[0]],
              worst_leaves={n: leaf_errs[n] for n in worst},
              worst_own_leaf=(worst_own, own_errs[worst_own]),
-             leaves=len(leaf_errs), tol=tol)
+             leaves=len(leaf_errs), tol=tol, step_launches=step_launches)
   log(f'  prelim gradients f32, batch {config.training.batch_size}: (loss, '
       f'v, p) kernel {k_losses} plain {p_losses} (rel {loss_rel:.2e}); '
       f'{len(leaf_errs)} leaves, worst rel to the largest leaf '
       + ', '.join(f'{n} {leaf_errs[n]:.2e}' for n in worst)
       + f' (limit {tol}); worst rel to its own leaf {worst_own} '
-      f'{own_errs[worst_own]:.2e}')
+      f'{own_errs[worst_own]:.2e}; kernel launches a step {step_launches} '
+      f'(expected {want_step})')
   failures = []
   if not (finite and loss_rel <= tol and leaf_errs[worst[0]] <= tol):
     failures.append(f'prelim gradients: loss rel {loss_rel:.3e}, worst leaf '
                     f'{worst[0]} {leaf_errs[worst[0]]:.3e}, finite {finite}')
+  if step_launches != want_step:
+    failures.append(f'prelim gradients: launches {step_launches}, expected '
+                    f'{want_step}')
   del models, results, k_grads, p_grads
   torch.cuda.empty_cache()
   return out, failures
@@ -1475,6 +1532,15 @@ def flow_counts():
   return {name: fn.launches for name, fn in FLOW_KERNELS}
 
 
+def k3_levels(config):
+  """The cost volumes a flow net's forward runs on K3: every FlowNet
+  level; the LiteFlowNet's stride-1 levels 6, 5 and 4 (its levels 3 and
+  2 take the stride-2 plain version, as the JAX dispatch does)."""
+  if config.model.arch == 'liteflownet':
+    return len(LFN_LEVELS)
+  return len(config.model.feature_nums)
+
+
 def check_corr_third(shape, seed):
   """K3 at third order at (B, H, W, C): the gradient in f1, f2 and dout of
   a seeded linear functional of ``check_corr_bwd``'s second-order product,
@@ -1543,7 +1609,7 @@ def leaf_errors(got, want):
   return errs[worst[0]], {n: errs[n] for n in worst}
 
 
-def pinn_grad_phase(seed):
+def pinn_grad_phase(seed, name=None):
   """One phase-2 loss at full width, kernel path (K3, B1, B2 to third
   order) against plain path (the plain cost volume under autograd): the
   same randomised parameters, batch, mask and noise.  Compares the
@@ -1552,8 +1618,11 @@ def pinn_grad_phase(seed):
   not reach are zeros) and the total gradient, every leaf within the
   limit of the largest leaf's gradient; counts the kernel path's launches
   by stage of the residual, by level, for one train step and for one eval
-  step.  Returns (report, failures)."""
-  config = configs.get_config(PINN_CONFIG)
+  step.  ``name``: the config (default ``PINN_CONFIG``).  A LiteFlowNet
+  reads no x, y or t, so its residual does not differentiate the cost
+  volumes: there the residual and its gradient are reported here and
+  held by ``lfn_residual_phase``.  Returns (report, failures)."""
+  config = configs.get_config(name or PINN_CONFIG)
   batch, mask, noise = pinn_batch(config, seed)
   f1m, f2m = pinn_losses.masked_frames(config, batch, mask, None, noise)
   _, _, x, y, t, _ = batch
@@ -1597,8 +1666,14 @@ def pinn_grad_phase(seed):
   tol = TOL[torch.float32]
   value_rel = [abs(a - b) / abs(b) for a, b in zip(k['values'], p['values'])]
   failures = []
+  # (loss, pinn_loss, data_loss): the residual's parts held where the
+  # residual reaches the cost volumes.
+  held = (('residual', 'total') if config.model.arch == 'flownet'
+          else ('total',))
+  held_values = [v for i, v in enumerate(value_rel)
+                 if i != 1 or 'residual' in held]
   out.update(values_kernel=k['values'], values_plain=p['values'],
-             value_rel=value_rel, tol=tol)
+             value_rel=value_rel, tol=tol, held=list(held))
   for which in ('residual', 'total'):
     worst, top3 = leaf_errors(k[which], p[which])
     finite = all(bool(torch.isfinite(v).all()) for v in k[which].values())
@@ -1606,14 +1681,15 @@ def pinn_grad_phase(seed):
                                 finite=finite, leaves=len(k[which]))
     log(f'  {which} gradient, kernel vs plain: worst leaf rel to the '
         'largest leaf ' + ', '.join(f'{n} {e:.2e}' for n, e in top3.items())
-        + f' (limit {tol}), finite {finite}')
-    if not (finite and worst <= tol):
+        + (f' (limit {tol})' if which in held else ' (reported)')
+        + f', finite {finite}')
+    if not finite or (which in held and worst > tol):
       failures.append(f'phase-2 {which} gradient: worst leaf {worst:.3e}, '
                       f'finite {finite}')
   log(f'  (loss, pinn_loss, data_loss) kernel {k["values"]} plain '
       f'{p["values"]} (rel {[f"{v:.2e}" for v in value_rel]})')
-  if not max(value_rel) <= tol:
-    failures.append(f'phase-2 losses: rel {max(value_rel):.3e}')
+  if not max(held_values) <= tol:
+    failures.append(f'phase-2 losses: rel {max(held_values):.3e}')
   log('  launches of the residual\'s gradient by stage (cumulative): '
       + '; '.join(f'{stage} {counts}' for stage, counts in out['stages']))
   log(f'  launches of one train step {out["step_launches"]}, by image size '
@@ -1622,15 +1698,16 @@ def pinn_grad_phase(seed):
   return out, failures
 
 
-def pinn_phase(pinn_steps, per_step, per_eval, seed):
+def pinn_phase(pinn_steps, per_step, per_eval, seed, name=None):
   """``pinn_lib.train`` at pinn_pde's full width: phase 1 for steps 0..2,
   phase 2 for steps 2..2 + ``pinn_steps`` with the cadence cut so that
   log, eval, the ``checkpoint_pinn`` preemption checkpoint and a snapshot
   fire in phase 2, on a rollout made anew in an empty data directory;
   the launch counts set to 0 before and read after, against the train
   and eval steps' counts of ``pinn_grad_phase`` (``per_step``,
-  ``per_eval``); then a resume.  Returns (report, launches, failures)."""
-  config = configs.get_config(PINN_CONFIG)
+  ``per_eval``); then a resume.  ``name``: the config (default
+  ``PINN_CONFIG``).  Returns (report, launches, failures)."""
+  config = configs.get_config(name or PINN_CONFIG)
   t = config.training
   t.n_iters = 2
   t.n_pinn_iters = pinn_steps
@@ -1638,7 +1715,7 @@ def pinn_phase(pinn_steps, per_step, per_eval, seed):
   t.eval_freq = pinn_steps // 2
   t.snapshot_freq_for_preemption = pinn_steps // 2
   t.snapshot_freq = pinn_steps
-  levels = len(config.model.feature_nums)
+  levels = k3_levels(config)
   frames = max(int(config.data.time_trim) + 64, 400)
   failures, history = [], []
   data_dir = os.environ.get('BPKF_DATA_DIR')
@@ -1672,8 +1749,9 @@ def pinn_phase(pinn_steps, per_step, per_eval, seed):
       phase1_end = torch.load(os.path.join(workdir, 'checkpoints',
                                            'checkpoint_0'),
                               map_location='cuda', weights_only=True)
-      moved = sum(not torch.equal(phase1_end['params'][n], v)
-                  for n, v in state.params.items())
+      unmoved = [n for n, v in state.params.items()
+                 if torch.equal(phase1_end['params'][n], v)]
+      moved = len(state.params) - len(unmoved)
       n_leaves = len(state.params)
       counts = {label: s.count for label, s in state.opt_state.items()}
       final_step = state.step
@@ -1690,6 +1768,17 @@ def pinn_phase(pinn_steps, per_step, per_eval, seed):
       profile_out, _ = profiled(
           'phase-2 train step (batch 64, f32)',
           lambda: step_fn(state, mask, batch, g))
+      # A leaf that did not move in phase 2 must have a gradient below
+      # Adam's eps, where an update of about lr * |g| / eps rounds away
+      # in f32 (the LiteFlowNet's coarsest level at its init: ~1e-17).
+      unmoved_grad = {}
+      if unmoved:
+        loss = pinn_losses.get_pinn_loss_fn(config, model)(
+            state.params, mask, batch, g)[0]
+        unmoved_grad = {n: float(v.abs().max()) for n, v in zip(
+            unmoved, torch.autograd.grad(
+                loss, [state.params[n] for n in unmoved]))}
+        del loss
       del model, state, phase1_end
 
       t.n_pinn_iters = pinn_steps + 2
@@ -1719,7 +1808,7 @@ def pinn_phase(pinn_steps, per_step, per_eval, seed):
                     if h['events']},
       losses=losses_, max_memory_allocated=peak, launches=launches,
       expected_launches=expected, snapshots=snapshots, params_moved=moved,
-      leaves=n_leaves, adam_counts=counts,
+      leaves=n_leaves, unmoved_grad=unmoved_grad, adam_counts=counts,
       final_step=final_step, resumed_steps=resumed_steps,
       resumed_final_step=resumed_final, profile=profile_out,
       k3_device_ms=families.get('K3 correlation', (0, 0.0))[1],
@@ -1735,9 +1824,12 @@ def pinn_phase(pinn_steps, per_step, per_eval, seed):
       f'{bool(np.isfinite(losses_).all())}; peak memory '
       f'{peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated)')
   log(f'  launches {launches} (expected {expected}); snapshots {snapshots}; '
-      f'parameters moved in phase 2 {moved} of {report["leaves"]}; Adam '
-      f'counts {counts} after {n_pinn} phase-2 steps; final step '
-      f'{final_step}; resumed {resumed_steps} to step {resumed_final}')
+      f'parameters moved in phase 2 {moved} of {report["leaves"]} (the '
+      f'others\' largest gradient '
+      f'{max(unmoved_grad.values(), default=0.0):.2e}, Adam\'s eps '
+      f'{config.optim.eps}); Adam counts {counts} after {n_pinn} phase-2 '
+      f'steps; final step {final_step}; resumed {resumed_steps} to step '
+      f'{resumed_final}')
   log(f'  profiled step: K3 {report["k3_device_ms"]:.3f} ms, B1 + B2 '
       f'{report["k3_bwd_device_ms"]:.3f} ms of device time')
   if not np.isfinite(losses_).all():
@@ -1755,8 +1847,9 @@ def pinn_phase(pinn_steps, per_step, per_eval, seed):
                     f'{pinn_meta}')
   if snapshots != ['checkpoint_0', 'checkpoint_1']:
     failures.append(f'phase 2: snapshots {snapshots}')
-  if moved != report['leaves']:
-    failures.append(f'phase 2: {moved} of {report["leaves"]} leaves moved')
+  if any(v >= config.optim.eps for v in unmoved_grad.values()):
+    failures.append(f'phase 2: {moved} of {report["leaves"]} leaves moved; '
+                    f'the others\' gradients {unmoved_grad}')
   if counts != {'flow': n_pinn, 'pres': n_pinn}:
     failures.append(f'phase 2: Adam counts {counts}, expected {n_pinn}')
   # The resume re-runs phase 1 after its last preemption checkpoint, then
@@ -1789,7 +1882,7 @@ def moped_posterior(config, seed):
                                                          pretrained=True))
 
 
-def bpinn_grad_phase(seed):
+def bpinn_grad_phase(seed, name=None):
   """One B-PINN loss at full width, kernel path (K3, B1, B2) against plain
   path (the plain cost volume under autograd): the same MOPED posterior,
   batch, mask, noises and draw.  Compares the four terms (the flow and
@@ -1798,8 +1891,9 @@ def bpinn_grad_phase(seed):
   of times larger and the same torch ops on both paths, would hide
   them) and of the whole loss, every leaf within the limit of the largest
   leaf's; counts the kernel path's K3, B1 and B2 launches for one train
-  step and one eval step.  Returns (report, failures)."""
-  config = configs.get_config(BPINN_CONFIG)
+  step and one eval step.  ``name``: the config (default
+  ``BPINN_CONFIG``).  Returns (report, failures)."""
+  config = configs.get_config(name or BPINN_CONFIG)
   batch, mask, noise = prelim_batch(config, seed)
   posterior = moped_posterior(config, seed)
   g = torch.Generator(device='cuda').manual_seed(seed + 2)
@@ -1851,8 +1945,8 @@ def bpinn_grad_phase(seed):
     if not (finite and worst <= tol):
       failures.append(f'B-PINN {which} gradient: worst leaf {worst:.3e}, '
                       f'finite {finite}')
-  levels = len(config.model.feature_nums)
-  want_step = {name: levels for name, _ in FLOW_KERNELS}
+  levels = k3_levels(config)
+  want_step = {kernel: levels for kernel, _ in FLOW_KERNELS}
   want_eval = dict(want_step, correlation_df1=0, correlation_df2=0)
   log(f'  launches of one train step {out["step_launches"]} (expected '
       f'{want_step}); of one eval step {out["eval_launches"]} (expected '
@@ -1872,7 +1966,7 @@ def _pinn_parts(params, part):
           for name, v in parts[part].items()}
 
 
-def bpinn_pipeline(bpinn_steps, seed, workdir):
+def bpinn_pipeline(bpinn_steps, seed, workdir, name=None, profile=True):
   """The PINN pipeline at pinn_pde's full width on the synthetic PDE data
   (rolled out into an empty data directory): ``pinn_lib.train`` (phase 1
   for steps 0..2, phase 2 for steps 2..4), then ``train_bpinn`` from its
@@ -1881,14 +1975,15 @@ def bpinn_pipeline(bpinn_steps, seed, workdir):
   ``bpinn_steps`` with the cadence cut so that log, eval, the preemption
   checkpoint and a snapshot fire, the launch counts set to 0 before and
   read after; one steady step profiled; a resume from the preemption
-  checkpoint.  Returns (report, the B-PINN snapshot, the bootstrapped
-  PINN parameters (mu), failures)."""
-  config = configs.get_config(BPINN_CONFIG)
+  checkpoint.  ``name``: the config (default ``BPINN_CONFIG``); without
+  ``profile`` the steady step is not profiled.  Returns (report, the
+  B-PINN snapshot, the bootstrapped PINN parameters (mu), failures)."""
+  config = configs.get_config(name or BPINN_CONFIG)
   t = config.training
   t.n_iters, t.n_pinn_iters = 2, 2
   t.log_freq = t.eval_freq = t.snapshot_freq_for_preemption = 1000
   t.snapshot_freq = 2
-  levels = len(config.model.feature_nums)
+  levels = k3_levels(config)
   failures = []
   pinn_dir = os.path.join(workdir, 'pinn')
   start = time.time()
@@ -1941,16 +2036,19 @@ def bpinn_pipeline(bpinn_steps, seed, workdir):
   bpinn_snapshot = os.path.join(bpinn_dir, 'checkpoints', 'checkpoint_1')
 
   # One steady step profiled, on the trained state.
-  model, _ = init_pinn(config, device='cuda')
-  tx = pinn_losses.get_pinn_optimizer(config, lr_mul_pres=0.05,
-                                      is_bpinn=True)
-  step_fn = bayes.get_bpinn_prelim_step_fn(config, model, tx, train=True)
-  batch, mask, _ = prelim_batch(config, seed)
-  g = torch.Generator(device='cuda').manual_seed(seed)
-  step_fn(state, mask, batch, g)
-  profile_out, _ = profiled('B-PINN train step (batch 64, f32)',
-                            lambda: step_fn(state, mask, batch, g))
-  del model, state
+  profile_out = None
+  if profile:
+    model, _ = init_pinn(config, device='cuda')
+    tx = pinn_losses.get_pinn_optimizer(config, lr_mul_pres=0.05,
+                                        is_bpinn=True)
+    step_fn = bayes.get_bpinn_prelim_step_fn(config, model, tx, train=True)
+    batch, mask, _ = prelim_batch(config, seed)
+    g = torch.Generator(device='cuda').manual_seed(seed)
+    step_fn(state, mask, batch, g)
+    profile_out, _ = profiled('B-PINN train step (batch 64, f32)',
+                              lambda: step_fn(state, mask, batch, g))
+    del model
+  del state
 
   t.n_bpinn_iters = bpinn_steps + 2
   resumed_history = []
@@ -1971,7 +2069,7 @@ def bpinn_pipeline(bpinn_steps, seed, workdir):
   step_s = float(np.mean(steady))
   losses_ = [h['loss'] for h in history]
   bs = t.batch_size
-  families = profile_out['families']
+  families = profile_out['families'] if profile else {}
   report = dict(
       pinn_train_s=pinn_s, bootstrap_mu_exact=mu_exact,
       bootstrap_rho_exact=rho_exact, steps=n_steps, events=dict(fired),
@@ -2002,8 +2100,9 @@ def bpinn_pipeline(bpinn_steps, seed, workdir):
       f'mu and rho leaves moved {moved} of {len(boot_params)}; Adam counts '
       f'{counts}; final step {final_step}; resumed {resumed_steps} to step '
       f'{resumed_final}')
-  log(f'  profiled step: K3 {report["k3_device_ms"]:.3f} ms, B1 + B2 '
-      f'{report["k3_bwd_device_ms"]:.3f} ms of device time')
+  if profile:
+    log(f'  profiled step: K3 {report["k3_device_ms"]:.3f} ms, B1 + B2 '
+        f'{report["k3_bwd_device_ms"]:.3f} ms of device time')
   if not (mu_exact and rho_exact):
     failures.append(f'B-PINN bootstrap: mu exact {mu_exact}, rho exact '
                     f'{rho_exact}')
@@ -2028,12 +2127,13 @@ def bpinn_pipeline(bpinn_steps, seed, workdir):
   return report, bpinn_snapshot, _pinn_parts(boot_params, 'mu'), failures
 
 
-def bpinn_ukf_phase(ckpt, workdir, cycles=3):
+def bpinn_ukf_phase(ckpt, workdir, cycles=3, name=None):
   """``ukf_lib.run(ckptdir=<the B-PINN snapshot>)`` at full width for
   ``cycles`` cycles: the posterior it filters with against the snapshot's
-  ``ema_params``, the belief, ``ukf.png`` and the launch counts.  Returns
-  (report, failures)."""
-  config = configs.get_config(BPINN_CONFIG)
+  ``ema_params``, the belief, ``ukf.png`` and the launch counts.
+  ``name``: the config (default ``BPINN_CONFIG``).  Returns (report,
+  failures)."""
+  config = configs.get_config(name or BPINN_CONFIG)
   saved = torch.load(ckpt, map_location='cuda', weights_only=True)
   handed = []
   real_kf = ukf_lib.PINN_KF
@@ -2051,7 +2151,7 @@ def bpinn_ukf_phase(ckpt, workdir, cycles=3):
     ukf_lib.PINN_KF = real_kf
   launches = {'correlation': k3.correlation.launches,
               'ns_step_fused': k4.ns_step_fused.launches}
-  levels = len(config.model.feature_nums)
+  levels = k3_levels(config)
   expected = {'correlation': levels * cycles,
               'ns_step_fused': cycles + max(cycles + 2, 64) - 1}
   got = bayes.flatten_posterior(handed[0])
@@ -2064,7 +2164,7 @@ def bpinn_ukf_phase(ckpt, workdir, cycles=3):
   with open(os.path.join(workdir, 'ukf.png'), 'rb') as fh:
     png = fh.read(8) == PNG_SIGNATURE
   report = dict(f_mse=mse, restored_is_ema=restored, finite=finite,
-                min_sqrt_cov_diag=float(diag.min()), png=png,
+                min_sqrt_cov_diag=float(diag.min()), png=png, cycles=cycles,
                 launches=launches, expected_launches=expected)
   log(f'  ukf from the B-PINN snapshot, {cycles} cycles: posterior == its '
       f'ema_params {restored}; f-MSE {mse:.4e}; finite {finite}, min '
@@ -2124,14 +2224,14 @@ def simulator_phase(boot_mu, workdir, n_steps=100, frames=10):
   return report, failures
 
 
-def cli_phase(ckpt, workdir):
+def cli_phase(ckpt, workdir, name=None):
   """``python -m b_pinn_kalman_filter_tpu_torch --mode ukf --ckptdir
-  <ckpt>`` on the port's pinn_pde config, as a subprocess.  Returns
-  (report, failures)."""
+  <ckpt>`` on the port's config ``name`` (default ``BPINN_CONFIG``), as a
+  subprocess.  Returns (report, failures)."""
   root = os.path.dirname(os.path.abspath(__file__))
   cmd = [sys.executable, '-m', 'b_pinn_kalman_filter_tpu_torch', '--config',
          os.path.join(root, 'b_pinn_kalman_filter_tpu_torch', 'configs',
-                      'pinn', 'pinn_pde.py'),
+                      f'{name or BPINN_CONFIG}.py'),
          '--workdir', workdir, '--mode', 'ukf', '--ckptdir', ckpt]
   start = time.time()
   proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
@@ -2144,7 +2244,8 @@ def cli_phase(ckpt, workdir):
       PNG_SIGNATURE)
   report = dict(returncode=proc.returncode, seconds=seconds, f_mse=mse,
                 png=png)
-  log(f'  {" ".join(cmd[1:4])} --mode ukf --ckptdir <B-PINN snapshot>: exit '
+  log(f'  {" ".join(cmd[1:4])} {name or BPINN_CONFIG} --mode ukf --ckptdir '
+      f'<B-PINN snapshot>: exit '
       f'{proc.returncode} in {seconds:.1f} s, ukf_mse.txt {mse}, ukf.png '
       f'{png}')
   failures = []
@@ -2153,15 +2254,16 @@ def cli_phase(ckpt, workdir):
   return report, failures
 
 
-def bpinn_phase(bpinn_steps, seed):
-  """The B-PINN phase: the full-width gradient check, then the pipeline
-  (PINN, B-PINN, ukf from its snapshot, the simulator, the CLI) on a
-  rollout made anew in an empty data directory.  Returns (report,
-  failures)."""
+def bpinn_phase(bpinn_steps, seed, name=None, simulate=True):
+  """The B-PINN phase at the config ``name`` (default ``BPINN_CONFIG``):
+  the full-width gradient check, then the pipeline (PINN, B-PINN (its
+  step profiled for the default config), ukf from its snapshot, with
+  ``simulate`` the simulator, the CLI) on a rollout made anew in an empty
+  data directory.  Returns (report, failures)."""
   report, failures = {}, []
-  log('[B-PINN: one step\'s terms and gradients in mu and rho, kernel path '
-      'vs plain path, batch 64, f32]')
-  report['grads'], f = bpinn_grad_phase(seed)
+  log(f'[B-PINN ({name or BPINN_CONFIG}): one step\'s terms and gradients '
+      'in mu and rho, kernel path vs plain path, batch 64, f32]')
+  report['grads'], f = bpinn_grad_phase(seed, name)
   failures += f
   data_dir = os.environ.get('BPKF_DATA_DIR')
   with tempfile.TemporaryDirectory() as tmp:
@@ -2169,24 +2271,376 @@ def bpinn_phase(bpinn_steps, seed):
     try:
       log(f'[B-PINN: pinn_lib.train, then train_bpinn from its snapshot, '
           f'steps 0..{bpinn_steps}; then a resume]')
-      report['train'], ckpt, boot_mu, f = bpinn_pipeline(bpinn_steps,
-                                                         seed, tmp)
+      report['train'], ckpt, boot_mu, f = bpinn_pipeline(
+          bpinn_steps, seed, tmp, name, profile=name is None)
       failures += f
       log('[B-PINN: ukf_lib.run from the B-PINN snapshot]')
-      report['ukf'], f = bpinn_ukf_phase(ckpt, os.path.join(tmp, 'ukf'))
+      report['ukf'], f = bpinn_ukf_phase(ckpt, os.path.join(tmp, 'ukf'),
+                                         name=name)
       failures += f
-      log('[B-PINN: simulator.run and simulate]')
-      report['simulator'], f = simulator_phase(boot_mu,
-                                               os.path.join(tmp, 'sim'))
-      failures += f
+      if simulate:
+        log('[B-PINN: simulator.run and simulate]')
+        report['simulator'], f = simulator_phase(boot_mu,
+                                                 os.path.join(tmp, 'sim'))
+        failures += f
       log('[B-PINN: the CLI, --mode ukf from the B-PINN snapshot]')
-      report['cli'], f = cli_phase(ckpt, os.path.join(tmp, 'cli'))
+      report['cli'], f = cli_phase(ckpt, os.path.join(tmp, 'cli'), name)
       failures += f
     finally:
       if data_dir is None:
         os.environ.pop('BPKF_DATA_DIR', None)
       else:
         os.environ['BPKF_DATA_DIR'] = data_dir
+  return report, failures
+
+
+LFN_CONFIG = 'pinn/pinn_pde_lfn'
+# The LiteFlowNet's stride-1 levels at 64x64, (H = W, C): levels 6, 5, 4.
+LFN_LEVELS = ((2, 192), (4, 128), (8, 96))
+
+
+def lfn_kernel_phase(seed):
+  """K3 and B1 + B2 at the LiteFlowNet's three stride-1 levels of
+  ``LFN_CONFIG``, f32: K3 at the train batch (64, once a level a forward)
+  and at the ukf's 8 draws folded into the batch (once a level a cycle);
+  B1 and B2 at batch 64 (once a level a prelim step) with the
+  second-order product.  The yardsticks are timed at FlowNet's levels
+  only.  Returns (rows, totals, failures): the totals a forward (K3,
+  batch 64), a cycle (K3, batch 8) and a prelim step (B1 + B2)."""
+  config = configs.get_config(LFN_CONFIG)
+  batch, draws = config.training.batch_size, ukf_lib.N_DRAWS
+  tol = TOL[torch.float32]
+  rows, failures = [], []
+  for i, (b, (h, c)) in enumerate([(b, lv) for b in (batch, draws)
+                                   for lv in LFN_LEVELS]):
+    shape = (b, h, h, c)
+    row = check_corr(shape, seed + i, yardstick=False)
+    row.update(kernel='correlation', shape=list(shape), tol=tol)
+    rows.append(row)
+    log(f'  K3 {shape} rel {row["rel_err"]:.3e} | kernel {row["ms"]:.4f} ms '
+        f'(call {row["call_ms"]:.4f}) plain {row["plain_ms"]:.4f} bound '
+        f'{row["bound_ms"]:.6f} ({row["bound_by"]}) plan {row["plan"]}')
+    if not (row['rel_err'] <= tol and row['same_bits_twice']):
+      failures.append(f'LFN K3 {shape}: rel {row["rel_err"]:.3e}, same '
+                      f'bits {row["same_bits_twice"]}')
+  for i, (h, c) in enumerate(LFN_LEVELS):
+    shape = (batch, h, h, c)
+    row = check_corr_bwd(shape, seed + 10 + i, yardstick=False)
+    row.update(kernel='correlation_bwd', shape=list(shape), tol=tol)
+    rows.append(row)
+    log(f'  B1+B2 {shape} rel df1 {row["df1"]["rel_err"]:.3e} df2 '
+        f'{row["df2"]["rel_err"]:.3e} second order '
+        f'{row["second_order_rel_err"]:.3e} | kernels {row["ms"]:.4f} ms '
+        f'plain {row["plain_ms"]:.4f} bound {row["bound_ms"]:.6f} plan '
+        f'{row["plan"]}')
+    for key in ('df1', 'df2'):
+      if not (row[key]['rel_err'] <= tol and row[key]['same_bits_twice']):
+        failures.append(f'LFN {key} {shape}: {row[key]}')
+    if not row['second_order_rel_err'] <= tol:
+      failures.append(f'LFN second order {shape}: '
+                      f'{row["second_order_rel_err"]:.3e}')
+
+  def total(kernel, b):
+    mine = [r for r in rows if r['kernel'] == kernel and r['shape'][0] == b]
+    out = {k: sum(r[k] for r in mine)
+           for k in ('ms', 'call_ms', 'plain_ms', 'bound_ms')}
+    out.update(bound_by='bytes', library_ms=None,
+               max_abs_err=max(r['max_abs_err'] for r in mine))
+    return out
+
+  totals = dict(forward=total('correlation', batch),
+                cycle=total('correlation', draws),
+                prelim_step_bwd=total('correlation_bwd', batch))
+  log(f'  device ms: K3 a LiteFlowNet forward (batch {batch}, 3 launches) '
+      f'{totals["forward"]["ms"]:.4f}, bound '
+      f'{totals["forward"]["bound_ms"]:.6f}; a ukf cycle (batch {draws}) '
+      f'{totals["cycle"]["ms"]:.4f}, bound {totals["cycle"]["bound_ms"]:.6f}'
+      f'; B1 + B2 a prelim step (6 launches) '
+      f'{totals["prelim_step_bwd"]["ms"]:.4f}, bound '
+      f'{totals["prelim_step_bwd"]["bound_ms"]:.6f}')
+  return rows, totals, failures
+
+
+def lfn_forward_phase(seed):
+  """One LiteFlowNet forward of ``LFN_CONFIG`` at full width (batch 64,
+  64x64, f32) on every parameter randomised, kernel path against plain
+  path: every flow of the cascade within the limit of its own max
+  |plain|; the kernel path's K3 launches by image size (one at each of
+  levels 6, 5 and 4); each path's host seconds, synchronised, of a second
+  call.  Returns (report, failures)."""
+  config = configs.get_config(LFN_CONFIG)
+  f1, f2, x, y, t = prelim_batch(config, seed)[0][:5]
+  flows, seconds = {}, {}
+  for path, kernels in (('kernel', True), ('plain', False)):
+    model = PINN(config, kernels=kernels).cuda()
+    randomize_(model, seed)
+    with torch.inference_mode():
+      model.flownet(f1, f2, x, y, t)
+      torch.cuda.synchronize()
+      reset_counts()
+      start = time.perf_counter()
+      flows[path] = model.flownet(f1, f2, x, y, t)
+      torch.cuda.synchronize()
+      seconds[path] = time.perf_counter() - start
+    if kernels:
+      launches = k3.correlation.launches
+      sizes = {f'{h}x{w}': n for (h, w), n in k3.correlation.sizes.items()}
+    del model
+  errs = [rel_err(a, b)[1] for a, b in zip(flows['kernel'], flows['plain'])]
+  finite = all(bool(torch.isfinite(f).all()) for f in flows['kernel'])
+  want_sizes = {f'{h}x{h}': 1 for h, _ in LFN_LEVELS}
+  report = dict(flow_rel_errs=errs, finite=finite, k3_launches=launches,
+                k3_launches_by_size=sizes, seconds=seconds,
+                shapes=[list(f.shape) for f in flows['kernel']],
+                tol=TOL[torch.float32])
+  log(f'  flows {report["shapes"]}: rel {[f"{e:.2e}" for e in errs]} (limit '
+      f'{TOL[torch.float32]}), finite {finite}; K3 launches {launches} by '
+      f'size {sizes}; host s kernel {seconds["kernel"]:.4f}, plain '
+      f'{seconds["plain"]:.4f}')
+  failures = []
+  if not (finite and max(errs) <= TOL[torch.float32]
+          and sizes == want_sizes and launches == len(LFN_LEVELS)):
+    failures.append(f'LFN forward: {report}')
+  return report, failures
+
+
+def lfn_residual_phase(seed):
+  """The phase-2 residual of the LiteFlowNet-PINN at full width, kernel
+  path against plain path, by its parts.  The LiteFlowNet reads no x, y
+  or t, so its flows enter the residual only as the PressureNet's
+  detached input, and the cost volumes' part in it is the flows' values.
+  Held: the kernel path's flows against the plain path's; the residual's
+  gradient in every LiteFlowNet leaf exactly zero on the kernel path (B1
+  and B2 run on zero cotangents there); and the kernel path's residual
+  and its gradient against the plain PressureNet's given the kernel
+  path's flows.  Reported: the residual and its gradient kernel path
+  against plain path, and, as the control, the plain path against itself
+  with its flows moved by 1e-7 of their largest value at random (the
+  PressureNet's instance norms amplify a change of the LiteFlowNet's
+  nearly uniform flows).  Returns (report, failures)."""
+  config = configs.get_config(LFN_CONFIG)
+  batch, mask, noise = pinn_batch(config, seed)
+  f1m, f2m = pinn_losses.masked_frames(config, batch, mask, None, noise)
+  _, _, x, y, t, _ = batch
+  models = {}
+  for path, kernels in (('kernel', True), ('plain', False)):
+    models[path] = PINN(config, kernels=kernels).cuda()
+    randomize_(models[path], seed)
+  with torch.no_grad():
+    flows = {path: m.flownet(f1m, f2m, x, y, t) for path, m in models.items()}
+  g = torch.Generator(device='cuda').manual_seed(seed + 3)
+  moved = [f + 1e-7 * f.abs().max() * torch.randn(
+      f.shape, generator=g, device='cuda') for f in flows['plain']]
+
+  def residual(model, given=None):
+    """The residual and its gradient in every leaf; the PressureNet on
+    the flows ``given``, else on the model's own."""
+    params = dict(model.named_parameters())
+    if given is None:
+      res = equation_mse_from_outputs(model, params, f1m, f2m, x, y, t,
+                                      pinn_losses.RE)
+    else:
+      def uvp(x, y, t):
+        pres = model.pressure_only(given, x, y, t)
+        return given[-1][..., 0:1], given[-1][..., 1:2], pres
+      res = equation_mse(uvp, x, y, t, pinn_losses.RE)
+    grads = torch.autograd.grad(res, list(params.values()),
+                                allow_unused=True, materialize_grads=True)
+    return float(res.detach()), dict(zip(params, grads))
+
+  kernel = residual(models['kernel'])
+  plain = residual(models['plain'])
+  given = residual(models['plain'], flows['kernel'])
+  control = residual(models['plain'], moved)
+  tol = TOL[torch.float32]
+  flow_rel = max(rel_err(a, b)[1]
+                 for a, b in zip(flows['kernel'], flows['plain']))
+  flow_zero = all(float(v.abs().max()) == 0 for n, v in kernel[1].items()
+                  if n.startswith('flownet.'))
+
+  def compare(a, b):
+    return abs(a[0] - b[0]) / abs(b[0]), leaf_errors(a[1], b[1])[0]
+
+  report = dict(flow_rel=flow_rel, flownet_grad_zero=flow_zero,
+                residual=kernel[0], tol=tol,
+                given_kernel_flows=compare(kernel, given),
+                kernel_vs_plain=compare(kernel, plain),
+                control_1e7=compare(control, plain),
+                flow_spatial_std_over_max=[
+                    float(f.std(dim=(1, 2)).min() / f.abs().max())
+                    for f in flows['plain']])
+  log(f'  flows kernel vs plain rel {flow_rel:.2e}; residual gradient in '
+      f'every flownet leaf zero {flow_zero}; residual {kernel[0]:.4e} and '
+      f'its gradient vs the plain PressureNet given the kernel flows (rel, '
+      f'worst leaf) {report["given_kernel_flows"]} (limit {tol})')
+  log(f'  reported: kernel vs plain {report["kernel_vs_plain"]}; control, '
+      f'the plain path with its flows moved by 1e-7 of their max '
+      f'{report["control_1e7"]}; the flows\' least spatial std over their '
+      f'max by level '
+      f'{[f"{v:.3f}" for v in report["flow_spatial_std_over_max"]]}')
+  failures = []
+  if not (flow_rel <= tol and flow_zero
+          and max(report['given_kernel_flows']) <= tol):
+    failures.append(f'LFN residual: {report}')
+  del models, flows, kernel, plain, given, control
+  torch.cuda.empty_cache()
+  return report, failures
+
+
+def lfn_prelim_step_phase(seed, steps=3):
+  """Steady prelim train steps of the LiteFlowNet-PINN at full width
+  (after a warm one), each synchronised: their mean seconds, samples/s and
+  the peak memory.  Returns the report."""
+  config = configs.get_config(LFN_CONFIG)
+  model, _ = init_pinn(config, device='cuda')
+  tx = pinn_losses.get_pinn_optimizer(config, lr_mul_pres=0.001)
+  state = state_lib.create_train_state(dict(model.named_parameters()), tx,
+                                       config.model.ema_rate)
+  step_fn = pinn_losses.get_prelim_step_fn(config, model, tx, train=True)
+  batch, mask, _ = prelim_batch(config, seed)
+  g = torch.Generator(device='cuda').manual_seed(seed)
+  step_fn(state, mask, batch, g)
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  seconds = []
+  for _ in range(steps):
+    start = time.perf_counter()
+    step_fn(state, mask, batch, g)
+    torch.cuda.synchronize()
+    seconds.append(time.perf_counter() - start)
+  bs = config.training.batch_size
+  step_s = float(np.mean(seconds))
+  out = dict(step_seconds=seconds, steady_step_s=step_s,
+             samples_per_s=bs / step_s,
+             max_memory_allocated=torch.cuda.max_memory_allocated())
+  log(f'  prelim step {step_s:.4f} s (mean of {steps}, synchronised): '
+      f'{bs / step_s:.1f} samples/s; peak memory '
+      f'{out["max_memory_allocated"] / 2**30:.2f} GiB')
+  del model, state
+  torch.cuda.empty_cache()
+  return out
+
+
+def lfn_phase(args):
+  """The LiteFlowNet-PINN (``LFN_CONFIG``) at full width: its kernels,
+  one forward and one prelim step kernel path against plain path, a
+  profiled prelim step, the phase-2 loss kernel path against plain path,
+  ``pinn_lib.train`` (phase 1, then phase 2), the B-PINN pipeline
+  (``train_bpinn`` from a PINN snapshot, ``ukf_lib.run`` from its
+  snapshot, the CLI's ``--mode ukf``).  Returns (report, failures)."""
+  report, failures = {}, []
+  config = configs.get_config(LFN_CONFIG)
+  bs = config.training.batch_size
+  log(f'[LiteFlowNet: K3 at levels 6, 5, 4 vs plain (batch {bs} and '
+      f'{ukf_lib.N_DRAWS}), B1 and B2 (batch {bs}), f32]')
+  report['kernels'], report['kernel_totals'], f = lfn_kernel_phase(
+      args.seed)
+  failures += f
+  log(f'[LiteFlowNet: one forward, kernel path vs plain path, batch {bs}, '
+      '64x64, f32]')
+  report['forward'], f = lfn_forward_phase(args.seed)
+  failures += f
+  log(f'[LiteFlowNet: one prelim step\'s loss and gradients, kernel path vs '
+      f'plain path, batch {bs}, f32]')
+  report['prelim_grads'], f = prelim_grad_phase(args.seed, LFN_CONFIG)
+  failures += f
+  log('[LiteFlowNet: steady prelim steps]')
+  report['prelim_step'] = lfn_prelim_step_phase(args.seed)
+  log(f'[LiteFlowNet: one phase-2 step\'s residual, losses and gradients, '
+      f'kernel path vs plain path, batch {bs}, f32]')
+  report['pinn_grads'], f = pinn_grad_phase(args.seed, LFN_CONFIG)
+  failures += f
+  log(f'[LiteFlowNet: the phase-2 residual by its parts, kernel path vs '
+      f'plain path, batch {bs}, f32]')
+  report['residual'], f = lfn_residual_phase(args.seed)
+  failures += f
+  log(f'[LiteFlowNet: pinn_lib.train, phase 1 steps 0..2, phase 2 steps '
+      f'2..{2 + args.lfn_pinn_steps}; then a resume]')
+  report['pinn'], report['pinn_launches'], f = pinn_phase(
+      args.lfn_pinn_steps, report['pinn_grads']['step_launches'],
+      report['pinn_grads']['eval_launches'], args.seed, LFN_CONFIG)
+  failures += f
+  bpinn, f = bpinn_phase(args.lfn_bpinn_steps, args.seed, LFN_CONFIG,
+                         simulate=False)
+  report['bpinn'] = bpinn
+  failures += f
+  return report, failures
+
+
+NC_TRAIN_CONFIG = 'vp/nc_ddpmpp'
+
+
+def nc_train_phase(train_steps, per_forward, seed):
+  """``run_lib.train`` at ``NC_TRAIN_CONFIG`` (the NC U-Net: nf 128,
+  ch_mult (1,2,2,2), 4 res blocks, 64x64x1, batch 64, bf16) through the
+  discrete DDPM loss, for steps 0..``train_steps``, on the NC stand-in
+  (the JAX package's seeded 512x456x256 field), the launch counts set to
+  0 before and read after: per step K1 at every forward site and as the
+  data gradient at every site, K2 at every forward site (and the eval's
+  forward), and K1's launches by kernel.  Cut: no snapshot sampling (the
+  config's N = 2000 ancestral steps), the eval at the first step only.
+  Checks: finite losses, parameters moved, launches.  Returns (report,
+  failures)."""
+  config = configs.get_config(NC_TRAIN_CONFIG)
+  t = config.training
+  t.n_iters = train_steps
+  t.snapshot_sampling = False
+  t.log_freq = t.eval_freq = t.snapshot_freq_for_preemption = 10 ** 6
+  t.snapshot_freq = 10 ** 6
+  history = []
+  with tempfile.TemporaryDirectory() as workdir:
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    start = time.time()
+    state = run_lib.train(config, workdir, device='cuda', history=history)
+    torch.cuda.synchronize()
+    total_s = time.time() - start
+    snapshots = sorted(os.listdir(os.path.join(workdir, 'checkpoints')))
+  peak = torch.cuda.max_memory_allocated()
+  launches = {'conv3x3': dict(k1.conv3x3.launches_by_use),
+              'conv3x3_by_kernel': dict(k1.conv3x3.launches_by_kernel),
+              'groupnorm_act': k2.groupnorm_act.launches}
+  fired = collections.Counter(e for h in history for e in h['events'])
+  n_steps = len(history)
+  forwards = n_steps + fired['eval']
+  expected = {'conv3x3': {'forward': per_forward['conv3x3'] * forwards,
+                          'data_grad': per_forward['conv3x3'] * n_steps,
+                          'jvp': 0},
+              'groupnorm_act': per_forward['groupnorm_act'] * forwards}
+  init = registry.create_model(config, device='cuda', seed=config.seed)
+  moved = sum(not torch.equal(p, state.params[n])
+              for n, p in init.named_parameters())
+  del init, state
+  losses_ = [h['loss'] for h in history]
+  steady = [h['seconds'] for h in history[2:] if not h['events']]
+  step_s = float(np.mean(steady)) if steady else history[-1]['seconds']
+  report = dict(steps=n_steps, events=dict(fired), total_s=total_s,
+                steady_step_s=step_s, imgs_per_s=t.batch_size / step_s,
+                steady_steps_timed=len(steady),
+                first_step_s=history[0]['seconds'], losses=losses_,
+                max_memory_allocated=peak, launches=launches,
+                expected_launches=expected, params_moved=moved,
+                snapshots=snapshots,
+                per_step=dict(conv3x3=per_forward['conv3x3'],
+                              conv3x3_data_grad=per_forward['conv3x3'],
+                              groupnorm_act=per_forward['groupnorm_act']))
+  log(f'  {n_steps} steps in {total_s:.2f} s (model, NC data and set-up '
+      f'included; events {dict(fired)}); steady step {step_s:.4f} s (mean '
+      f'of {len(steady)} event-free steps after the first two, '
+      f'synchronised): {t.batch_size / step_s:.1f} imgs/s; first step '
+      f'{history[0]["seconds"]:.2f} s')
+  log(f'  DDPM losses {[f"{v:.5f}" for v in losses_]}; peak memory '
+      f'{peak / 2**30:.2f} GiB; parameters moved {moved}; launches '
+      f'{launches} (expected {expected}); snapshots {snapshots}')
+  failures = []
+  if not np.isfinite(losses_).all():
+    failures.append('nc train: a loss is not finite')
+  if not moved:
+    failures.append('nc train: no parameter moved')
+  if (launches['conv3x3'] != expected['conv3x3']
+      or launches['groupnorm_act'] != expected['groupnorm_act']):
+    failures.append(f'nc train launches {launches}, expected {expected}')
   return report, failures
 
 
@@ -2505,7 +2959,7 @@ def profiled(name, fn):
   busy_s = sum(e.self_device_time_total for e in ops) * 1e-6
   top = sorted(ops, key=lambda e: -e.self_device_time_total)[:6]
   # Not the profiler's own step range, whose own time is the idle margins.
-  host_ops = sorted((e for e in prof.key_averages()
+  host_ops = sorted((e for e in averages(prof)
                      if e.device_type == DeviceType.CPU
                      and not e.key.startswith('ProfilerStep')),
                     key=lambda e: -e.self_cpu_time_total)[:6]
@@ -2590,8 +3044,8 @@ def ukf_profile_phase(seed):
   """One steady ukf cycle (after a warm one): the measurement with the
   draws vmapped and one after another (the same draws: the generator
   reseeded for each), compared and timed in turns on the host's clock,
-  then each under ``torch.profiler``, and the filter likewise (see
-  ``profiled``).  Returns (report, failures)."""
+  then the vmapped one under ``torch.profiler``, and the filter likewise
+  (see ``profiled``).  Returns (report, failures)."""
   config = configs.get_config(UKF_CONFIG)
   size = config.data.image_size
   data = ns_rollout(3, size, size, config.seed, device='cuda')
@@ -2637,10 +3091,8 @@ def ukf_profile_phase(seed):
   log(f'  measurement seconds (host clock, mean of 6 each): vmapped '
       f'{out["measurement_vmapped_s"]:.4f}, sequential '
       f'{out["measurement_sequential_s"]:.4f}')
-  measurement = None
-  for way in ways:
-    out[f'measurement_{way}'], measurement = profiled(
-        f'measurement ({way} draws)', ways[way])
+  out['measurement_vmapped'], measurement = profiled(
+      'measurement (vmapped draws)', ways['vmapped'])
   out['filter'], _ = profiled('filter', lambda: kf.filter(prep(2, 2),
                                                           measurement))
   return out, failures
@@ -3082,22 +3534,32 @@ def main():
   parser = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
   parser.add_argument('--steps', type=int, default=None,
                       help='sampler steps N (default: the config, 1000)')
-  parser.add_argument('--requests', type=int, default=2)
+  parser.add_argument('--requests', type=int, default=1,
+                      help='sample requests (default 1)')
   parser.add_argument('--cycles', type=int, default=10,
                       help='ukf filter cycles (default 10, as ukf_lib.run)')
-  parser.add_argument('--train-steps', type=int, default=20,
-                      help='train steps after step 0 (default 20; even)')
-  parser.add_argument('--prelim-steps', type=int, default=20,
-                      help='PINN prelim steps after step 0 (default 20; '
+  parser.add_argument('--train-steps', type=int, default=10,
+                      help='train steps after step 0 (default 10; even)')
+  parser.add_argument('--prelim-steps', type=int, default=10,
+                      help='PINN prelim steps after step 0 (default 10; '
                       'even)')
-  parser.add_argument('--pinn-steps', type=int, default=6,
+  parser.add_argument('--pinn-steps', type=int, default=4,
                       help='PINN phase-2 steps after its first (default '
-                      '6; even)')
-  parser.add_argument('--bpinn-steps', type=int, default=10,
-                      help='B-PINN steps after step 0 (default 10; even)')
-  parser.add_argument('--fixed-steps', type=int, default=25,
-                      help='DPS fixed-solver steps (default 25 of the '
+                      '4; even)')
+  parser.add_argument('--bpinn-steps', type=int, default=6,
+                      help='B-PINN steps after step 0 (default 6; even)')
+  parser.add_argument('--fixed-steps', type=int, default=10,
+                      help='DPS fixed-solver steps (default 10 of the '
                       'reference\'s 5000)')
+  parser.add_argument('--lfn-pinn-steps', type=int, default=4,
+                      help='LiteFlowNet-PINN phase-2 steps after its first '
+                      '(default 4; even)')
+  parser.add_argument('--lfn-bpinn-steps', type=int, default=4,
+                      help='LiteFlowNet B-PINN steps after step 0 (default '
+                      '4; even)')
+  parser.add_argument('--nc-train-steps', type=int, default=4,
+                      help='vp/nc_ddpmpp DDPM train steps after step 0 '
+                      '(default 4)')
   parser.add_argument('--seed', type=int, default=0)
   parser.add_argument('--out', default=None,
                       help='directory for chip_smoke.json (per-shape details)')
@@ -3284,6 +3746,9 @@ def main():
   report['bpinn'], f16 = bpinn_phase(args.bpinn_steps, args.seed)
   failures += f16
 
+  report['lfn'], f16b = lfn_phase(args)
+  failures += f16b
+
   nc_config, nc = nc_model(torch.bfloat16, True, args.seed)
   nc_batch = nc_config.training.batch_size
   log(f'[inverse: K1, K1 dx and K2 vs plain at the {INVERSE_CONFIG} U-Net '
@@ -3339,6 +3804,13 @@ def main():
                    groupnorm_act=nc_per_forward['groupnorm_act'])
   if per_eval != want_eval:
     failures.append(f'guided eval launches {per_eval}, expected {want_eval}')
+  log(f'[train: run_lib.train, {NC_TRAIN_CONFIG} through the DDPM loss, '
+      f'batch {configs.get_config(NC_TRAIN_CONFIG).training.batch_size}, '
+      f'bf16, steps '
+      f'0..{args.nc_train_steps}]')
+  report['nc_train'], f20b = nc_train_phase(args.nc_train_steps,
+                                            nc_per_forward, args.seed)
+  failures += f20b
   log(f'[inverse: inverse_lib.inverse (dpm), the controlled sampler (RK45), '
       f'DPS (fixed, {args.fixed_steps} steps); batch {nc_batch}, bf16]')
   report['inverse'], f21 = inverse_phase(args.fixed_steps, per_eval,
@@ -3426,25 +3898,71 @@ def main():
   conv_all = dict(conv_total, **conv_more)
   norm_all = dict(norm_total, **norm_more)
   corr, ns = flow_totals['correlation'], flow_totals['ns_step_fused']
+  nc_train = report['nc_train']
+  lfn = report['lfn']
+  lfn_totals = lfn['kernel_totals']
+  lfn_bpinn = lfn['bpinn']['train']
+
+  def lfn_keys(kernels, which):
+    """K3's (``which`` 'k3') or B1 + B2's ('k3_bwd') numbers on the
+    LiteFlowNet-PINN path (pinn/pinn_pde_lfn, batch 64, f32): launches a
+    forward (K3), a prelim, phase-2 and B-PINN step and a ukf cycle, and
+    over the phase-2 and B-PINN runs; device ms of the kernel-table
+    shapes and in the profiled steps, with the bounds."""
+    def n(counts):
+      return sum(counts[k] for k in kernels)
+    out = dict(
+        lfn_prelim_step_launches=n(lfn['prelim_grads']['step_launches']),
+        lfn_phase2_step_launches=n(lfn['pinn_grads']['step_launches']),
+        lfn_phase2_step_launches_by_size={
+            k: lfn['pinn_grads']['step_launches_by_size'][k]
+            for k in kernels},
+        lfn_phase2_launches=n(lfn['pinn_launches']),
+        lfn_bpinn_step_launches=n(lfn['bpinn']['grads']['step_launches']),
+        lfn_bpinn_launches=n(lfn_bpinn['launches']),
+        lfn_phase2_step_device_ms=lfn['pinn'][f'{which}_device_ms'])
+    if which == 'k3':
+      out.update(
+          lfn_forward_launches=lfn['forward']['k3_launches'],
+          lfn_ukf_cycle_launches=lfn['bpinn']['ukf']['launches'][
+              'correlation'] // lfn['bpinn']['ukf']['cycles'],
+          **{f'lfn_forward_{k}': lfn_totals['forward'][k]
+             for k in ('ms', 'plain_ms', 'bound_ms')},
+          **{f'lfn_cycle_{k}': lfn_totals['cycle'][k]
+             for k in ('ms', 'plain_ms', 'bound_ms')})
+    else:
+      out.update({f'lfn_prelim_step_{k}': lfn_totals['prelim_step_bwd'][k]
+                  for k in ('ms', 'plain_ms', 'bound_ms')})
+    return out
+
+  def nc_keys(use):
+    """A kernel's launches in ``vp/nc_ddpmpp``'s DDPM training (batch
+    64, bf16): a step's and over the run."""
+    launches = (nc_train['launches']['conv3x3'][use] if use else
+                nc_train['launches']['groupnorm_act'])
+    per = nc_train['per_step']['conv3x3' if use else 'groupnorm_act']
+    return dict(nc_train_step_launches=per, nc_train_launches=launches)
+
   reread_row = reread_f32[0] if reread_f32 else {}
   table = {'kernels': [
       dict(entry('conv3x3', 'conv3x3_wgmma.cu', 'winograd_pallas.py:159',
                  by_kernel['wgmma'], conv_all),
            **dps_keys(nc_conv_total, 'conv3x3'),
-           dps_eval_64x64=k1_nc64),
+           dps_eval_64x64=k1_nc64, **nc_keys('forward')),
       entry('conv3x3_direct', 'conv3x3.cu', 'winograd_pallas.py:159',
             by_kernel['direct'], conv_all, yardstick=True),
       dict(entry('conv3x3_data_grad', 'conv3x3_wgmma.cu',
                  'winograd_pallas.py:159',
                  report['train']['conv3x3_by_use']['data_grad'],
                  dgrad_total),
-           **dps_keys(nc_dgrad_total, 'conv3x3_data_grad')),
+           **dps_keys(nc_dgrad_total, 'conv3x3_data_grad'),
+           **nc_keys('data_grad')),
       dict(entry('groupnorm_act', 'groupnorm.cu', 'groupnorm_pallas.py:118',
                  launches['groupnorm_act'], norm_all),
            **dps_keys(nc_norm_total, 'groupnorm_act'),
            reread_f32_64x64x128={k: reread_row.get(k) for k in (
                'ms', 'plain_ms', 'library_ms', 'bound_ms', 'bound_by',
-               'rel_err')}),
+               'rel_err')}, **nc_keys(None)),
       dict(entry('conv3x3_jvp', 'conv3x3_wgmma.cu', 'winograd_pallas.py:159',
                  eval_launches['conv3x3_jvp'],
                  dict(jvp_conv_total, **jvp_conv_more)),
@@ -3471,7 +3989,8 @@ def main():
            bpinn_launches=bpinn_train['launches']['correlation'],
            bpinn_step_launches=bpinn_step['correlation'],
            bpinn_step_device_ms=bpinn_train['k3_device_ms'],
-           bpinn_step_bound_ms=k3_step_bound),
+           bpinn_step_bound_ms=k3_step_bound,
+           **lfn_keys(('correlation',), 'k3')),
       dict(entry('correlation_bwd', 'correlation_bwd.cu',
                  'correlation_pallas.py:42',
                  prelim_launches['correlation_df1']
@@ -3488,7 +4007,8 @@ def main():
            bpinn_step_launches=bpinn_step['correlation_df1']
            + bpinn_step['correlation_df2'],
            bpinn_step_device_ms=bpinn_train['k3_bwd_device_ms'],
-           bpinn_step_bound_ms=bwd_step_bound),
+           bpinn_step_bound_ms=bwd_step_bound,
+           **lfn_keys(('correlation_df1', 'correlation_df2'), 'k3_bwd')),
       dict(entry('correlation_bwd_tile', 'correlation_bwd_tile.cu',
                  'correlation_pallas.py:42', 0, bwd_total, yardstick=True),
            phase2_step_ms_from_rows=per_level * bwd_total['prev_ms']),
@@ -3533,7 +4053,12 @@ def main():
       f'groupnorm_act_jvp: device ms per U-Net forward\'s sites (bf16, '
       f'batch 8), library ms torch.func.jvp of F.conv2d and of '
       f'F.group_norm + F.silu (primal and tangent), launches over the '
-      f'evaluate run, bpd_eval_launches an evaluation')
+      f'evaluate run, bpd_eval_launches an evaluation; lfn_* keys: K3 and '
+      f'K3 backward on the LiteFlowNet-PINN path (pinn/pinn_pde_lfn, batch '
+      f'{prelim_batch_size}, f32), launches a forward, step and cycle and '
+      f'over its runs, device ms at its stride-1 levels and in its '
+      f'profiled steps, bounds; nc_train_* keys: K1, K1 data gradient and '
+      f'K2 launches a vp/nc_ddpmpp DDPM train step and over its run')
   if failures:
     for failure in failures:
       print(f'FAILED: {failure}', file=sys.stderr)

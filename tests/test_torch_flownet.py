@@ -158,7 +158,10 @@ def test_conv_feature_pads_one_on_both_sides_at_stride_2():
 
 
 def test_unported_flow_models_raise():
+  """'unet' and 'mlp' take no (f1, f2, x, y, t) call: the JAX PINN
+  crashes on them, the port refuses them ('liteflownet' is ported)."""
   _, config = port_parity.tiny_pinn_configs()
-  config.model.arch = 'liteflownet'
-  with pytest.raises(NotImplementedError, match='not ported'):
-    torch_pinn.get_flow_model(config)
+  for arch in ('unet', 'mlp'):
+    config.model.arch = arch
+    with pytest.raises(NotImplementedError, match='not ported'):
+      torch_pinn.get_flow_model(config)

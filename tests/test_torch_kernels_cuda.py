@@ -537,10 +537,10 @@ def test_unet_drift_and_divergence_kernel_path_matches_plain_path(card):
     assert _rel(got, want) <= TOL[torch.bfloat16]
 
 
-def _prelim_setup(kernels):
+def _prelim_setup(kernels, name='pinn/pinn_pde'):
   from b_pinn_kalman_filter_tpu_torch import configs
   from b_pinn_kalman_filter_tpu_torch.pinn.pinn import PINN
-  config = configs.get_config('pinn/pinn_pde')
+  config = configs.get_config(name)
   model = PINN(config, kernels=kernels)
   with torch.no_grad():      # every leaf drawn: no zero-init head
     g = torch.Generator().manual_seed(1)
@@ -550,21 +550,85 @@ def _prelim_setup(kernels):
   return config, model.cuda()
 
 
+# The stride-1 levels of the LiteFlowNet (pinn/pinn_pde_lfn, 64x64):
+# levels 6, 5 and 4 (levels 3 and 2 take the stride-2 plain cost volume).
+LFN_LEVELS = [(2, 2, 192), (4, 4, 128), (8, 8, 96)]
+
+
+@pytest.mark.parametrize('batch', [64, 8])
+@pytest.mark.parametrize('level', LFN_LEVELS)
+def test_correlation_and_backward_at_lfn_levels(card, level, batch):
+  """K3, B1 and B2 at a LiteFlowNet level, at the train batch (64) and
+  the ukf's 8 draws folded into the batch: one launch each against the
+  plain versions."""
+  shape = (batch,) + level
+  f1, f2 = (torch.randn(shape, generator=card, device='cuda')
+            for _ in range(2))
+  d = torch.randn(shape[:3] + (49,), generator=card, device='cuda')
+  cases = ((k3.correlation, k3.correlation_plain, (f1, f2)),
+           (k3.correlation_df1, k3.correlation_df1_plain, (d, f2)),
+           (k3.correlation_df2, k3.correlation_df2_plain, (d, f1)))
+  for fn, plain, args in cases:
+    before = fn.launches
+    with torch.inference_mode():
+      got = fn(*args)
+      want = plain(*args)
+    assert fn.launches == before + 1
+    assert got.shape == want.shape
+    assert _rel(got, want) <= TOL[torch.float32], fn.__name__
+
+
+def _lfn_inputs(card, B, S):
+  """(f1, f2, x, y, t, target) of a PINN batch, uniform frames and
+  coordinates, normal targets."""
+  return (torch.rand((B, S, S, 1), generator=card, device='cuda'),
+          torch.rand((B, S, S, 1), generator=card, device='cuda'),
+          torch.rand((B, S, S, 1), generator=card, device='cuda'),
+          torch.rand((B, S, S, 1), generator=card, device='cuda'),
+          torch.arange(1, B + 1, device='cuda', dtype=torch.float32),
+          torch.randn((B, S, S, 3), generator=card, device='cuda'))
+
+
+def test_liteflownet_forward_kernel_path_matches_plain_path(card):
+  """The LiteFlowNet of pinn/pinn_pde_lfn at batch 8, 64x64: every flow
+  of the cascade on the kernels against the plain cost volumes, the same
+  parameters; K3 launches once at each of levels 6, 5 and 4."""
+  config, kernel_model = _prelim_setup(True, 'pinn/pinn_pde_lfn')
+  _, plain_model = _prelim_setup(False, 'pinn/pinn_pde_lfn')
+  f1, f2, x, y, t, _ = _lfn_inputs(card, 8, config.data.image_size)
+  before = k3.correlation.launches
+  sizes = k3.correlation.sizes.copy()
+  with torch.inference_mode():
+    got = kernel_model.flownet(f1, f2, x, y, t)
+    assert k3.correlation.launches == before + 3
+    assert k3.correlation.sizes - sizes == {(2, 2): 1, (4, 4): 1, (8, 8): 1}
+    want = plain_model.flownet(f1, f2, x, y, t)
+  assert len(got) == len(want) == 6
+  for g, w in zip(got, want):
+    assert _rel(g, w) <= TOL[torch.float32]
+
+
 def test_prelim_step_gradients_kernel_path_match_plain_path(card):
   """One prelim loss's gradients at pinn_pde's full width (batch 4):
   the cost volumes on the kernels against their plain versions, the same
   parameters, batch, mask and noise; every leaf within 1e-4 of the
-  largest leaf's gradient."""
+  largest leaf's gradient.  Each of the FlowNet's five levels launches
+  K3, B1 and B2 once."""
+  _check_prelim_gradients(card, 'pinn/pinn_pde', 5)
+
+
+def test_lfn_prelim_step_gradients_kernel_path_match_plain_path(card):
+  """The same at pinn/pinn_pde_lfn: the LiteFlowNet's three stride-1
+  levels each launch K3, B1 and B2 once."""
+  _check_prelim_gradients(card, 'pinn/pinn_pde_lfn', len(LFN_LEVELS))
+
+
+def _check_prelim_gradients(card, name, levels):
   from b_pinn_kalman_filter_tpu_torch.pinn import losses as pinn_losses
-  config, kernel_model = _prelim_setup(True)
-  _, plain_model = _prelim_setup(False)
+  config, kernel_model = _prelim_setup(True, name)
+  _, plain_model = _prelim_setup(False, name)
   B, S = 4, config.data.image_size
-  batch = (torch.rand((B, S, S, 1), generator=card, device='cuda'),
-           torch.rand((B, S, S, 1), generator=card, device='cuda'),
-           torch.rand((B, S, S, 1), generator=card, device='cuda'),
-           torch.rand((B, S, S, 1), generator=card, device='cuda'),
-           torch.arange(1, B + 1, device='cuda', dtype=torch.float32),
-           torch.randn((B, S, S, 3), generator=card, device='cuda'))
+  batch = _lfn_inputs(card, B, S)
   mask = (torch.rand((S, S, 1), generator=card, device='cuda') < 0.9).float()
   noise = tuple(torch.randn((B, S, S, 1), generator=card, device='cuda')
                 for _ in range(2))
@@ -577,14 +641,12 @@ def test_prelim_step_gradients_kernel_path_match_plain_path(card):
         params, mask, batch, noise=noise)
     grads.append(dict(zip(params, torch.autograd.grad(
         loss, list(params.values())))))
-  # The kernel path: five cost volumes, and both backward kernels at each.
-  levels = len(config.model.feature_nums)
   assert [k3.correlation.launches, k3.correlation_df1.launches,
           k3.correlation_df2.launches] == [n + levels for n in before]
   top = max(float(v.abs().max()) for v in grads[1].values())
-  for name, want in grads[1].items():
-    assert float((grads[0][name] - want).abs().max()) <= (
-        TOL[torch.float32] * top), name
+  for leaf, want in grads[1].items():
+    assert float((grads[0][leaf] - want).abs().max()) <= (
+        TOL[torch.float32] * top), leaf
 
 
 def test_pinn_residual_gradient_kernel_path_matches_plain_path(card):

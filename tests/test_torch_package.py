@@ -86,6 +86,10 @@ def test_pinn_config_has_the_jax_keys_and_values():
   _check_config_keys('pinn/pinn_pde')
 
 
+def test_lfn_config_has_the_jax_keys_and_values():
+  _check_config_keys('pinn/pinn_pde_lfn')
+
+
 @pytest.mark.parametrize('name', [
     'vp/nc_ddpmpp', 'inverse/nc_ddpmpp_inpaint',
     'inverse/nc_ddpmpp_inpaint_dps', 'inverse/nc_ddpmpp_rndinpaint_dps'])
