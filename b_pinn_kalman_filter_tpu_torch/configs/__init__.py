@@ -5,9 +5,12 @@ Usage:
     cfg = configs.get_config("vp/cifar10_ddpmpp_continuous")
 
 The configs of the ported paths: the flagship, ``pinn/pinn_pde`` (the
-FlowNet-PINN), ``pinn/pinn_pde_lfn`` (the LiteFlowNet-PINN), and
+FlowNet-PINN), ``pinn/pinn_pde_lfn`` (the LiteFlowNet-PINN),
 ``vp/nc_ddpmpp`` (trained by the discrete DDPM loss) with its three
-``inverse/`` configs.
+``inverse/`` configs, and the fifteen NCSN++ configs: ``{ve,vp}/
+cifar10_ncsnpp``, ``{ve,vp,subvp}/cifar10_ncsnpp{,_deep}_continuous``,
+``ve/celeba_ncsnpp`` and ``ve/{celebahq,celebahq_256,ffhq,ffhq_256,
+church,bedroom}_ncsnpp_continuous``.
 """
 
 import importlib

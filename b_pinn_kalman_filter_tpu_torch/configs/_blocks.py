@@ -1,5 +1,5 @@
 """Shared config blocks (copy of the JAX package's ``configs/_blocks.py``;
-only the block of the ported path so far)."""
+the blocks of the ported models: DDPM++ and NCSN++)."""
 
 
 def ddpmpp_model(model):
@@ -25,6 +25,63 @@ def ddpmpp_model(model):
   model.attention_type = 'ddpm'
   model.init_scale = 0.
   model.embedding_type = 'positional'
+  model.fourier_scale = 16
+  model.conv_size = 3
+  return model
+
+
+def ncsnpp_highres_model(model):
+  """High-resolution NCSN++ block: 7-level pyramid with progressive
+  input/output skips (as in the reference's
+  ve/bedroom_ncsnpp_continuous.py)."""
+  model.name = 'ncsnpp'
+  model.scale_by_sigma = True
+  model.ema_rate = 0.999
+  model.normalization = 'GroupNorm'
+  model.nonlinearity = 'swish'
+  model.nf = 128
+  model.ch_mult = (1, 1, 2, 2, 2, 2, 2)
+  model.num_res_blocks = 2
+  model.attn_resolutions = (16,)
+  model.resamp_with_conv = True
+  model.conditional = True
+  model.fir = True
+  model.fir_kernel = [1, 3, 3, 1]
+  model.skip_rescale = True
+  model.resblock_type = 'biggan'
+  model.progressive = 'output_skip'
+  model.progressive_input = 'input_skip'
+  model.progressive_combine = 'sum'
+  model.attention_type = 'ddpm'
+  model.init_scale = 0.
+  model.fourier_scale = 16
+  model.conv_size = 3
+  return model
+
+
+def ncsnpp_model(model):
+  """NCSN++ model block (as in the reference's
+  ve/cifar10_ncsnpp_continuous.py)."""
+  model.name = 'ncsnpp'
+  model.scale_by_sigma = True
+  model.ema_rate = 0.999
+  model.normalization = 'GroupNorm'
+  model.nonlinearity = 'swish'
+  model.nf = 128
+  model.ch_mult = (1, 2, 2, 2)
+  model.num_res_blocks = 4
+  model.attn_resolutions = (16,)
+  model.resamp_with_conv = True
+  model.conditional = True
+  model.fir = True
+  model.fir_kernel = [1, 3, 3, 1]
+  model.skip_rescale = True
+  model.resblock_type = 'biggan'
+  model.progressive = 'none'
+  model.progressive_input = 'residual'
+  model.progressive_combine = 'sum'
+  model.attention_type = 'ddpm'
+  model.init_scale = 0.
   model.fourier_scale = 16
   model.conv_size = 3
   return model

@@ -1,0 +1,24 @@
+"""NCSN++ on LSUN bedroom, continuous VE (copy of the JAX package's
+``configs/ve/bedroom_ncsnpp_continuous.py``; same keys and values)."""
+
+from b_pinn_kalman_filter_tpu_torch.configs._blocks import (
+    ncsnpp_highres_model)
+from b_pinn_kalman_filter_tpu_torch.configs.default_lsun_configs import (
+    get_default_configs)
+
+
+def get_config():
+  config = get_default_configs()
+  training = config.training
+  training.sde = 'vesde'
+  training.continuous = True
+
+  sampling = config.sampling
+  sampling.method = 'pc'
+  sampling.predictor = 'reverse_diffusion'
+  sampling.corrector = 'langevin'
+
+  config.data.category = 'bedroom'
+
+  ncsnpp_highres_model(config.model)
+  return config

@@ -1,0 +1,25 @@
+"""NCSN++ on LSUN church, continuous VE (copy of the JAX package's
+``configs/ve/church_ncsnpp_continuous.py``; same keys and values)."""
+
+from b_pinn_kalman_filter_tpu_torch.configs._blocks import (
+    ncsnpp_highres_model)
+from b_pinn_kalman_filter_tpu_torch.configs.default_lsun_configs import (
+    get_default_configs)
+
+
+def get_config():
+  config = get_default_configs()
+  training = config.training
+  training.sde = 'vesde'
+  training.continuous = True
+
+  sampling = config.sampling
+  sampling.method = 'pc'
+  sampling.predictor = 'reverse_diffusion'
+  sampling.corrector = 'langevin'
+
+  config.data.category = 'church_outdoor'
+
+  ncsnpp_highres_model(config.model)
+  config.model.sigma_max = 380
+  return config

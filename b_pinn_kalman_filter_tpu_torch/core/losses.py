@@ -283,7 +283,10 @@ def get_step_fn(sde, model, tx: Optimizer, train: bool,
 
     def step_fn(state: TrainState, batch, generator=None, noise=None):
       loss = loss_fn(state.params, batch, generator, noise)
-      grads = torch.autograd.grad(loss, list(state.params.values()))
+      # A parameter outside the graph (NCSN++'s Fourier projection ``W``,
+      # under ``stop_gradient`` in JAX) gets a zero gradient, as in JAX.
+      grads = torch.autograd.grad(loss, list(state.params.values()),
+                                  allow_unused=True, materialize_grads=True)
       tx.apply_(grads, state.opt_state, state.params)
       ema_update_(state, state.params)
       state.step += 1

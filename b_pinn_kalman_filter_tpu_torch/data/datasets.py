@@ -3,8 +3,9 @@ paths, and the inpainting masks.
 
 The port's own copy of the parts of the JAX package's ``data/datasets.py``
 that training the flagship and the PINN and the inverse suite read:
-``get_dataset`` (its CIFAR10, PDE and NC branches, and the one-epoch
-eval loader of ``evaluation=True``), ``NumpyLoader`` (epoch reshuffles,
+``get_dataset`` (its CIFAR10, PDE and NC branches, the synthetic
+stand-ins of its SVHN, CELEBA, LSUN, FFHQ and CelebAHQ branches, and the
+one-epoch eval loader of ``evaluation=True``), ``NumpyLoader`` (epoch reshuffles,
 full batches, endless or ``num_epochs``), the native reader of the
 ``cifar-10-batches-py`` pickles, and the synthetic stand-in,
 ``SyntheticImages`` over ``smooth_field``, which ``get_dataset`` returns
@@ -17,7 +18,7 @@ MNIST idx reader.  Left out: the
 step there (the port's train loops fetch each batch in turn), the thread
 pool of ``NumpyLoader(num_workers>1)`` (which gives the same batches), the
 NetCDF reader of the PDE branch (the synthetic rollout stands in for the
-simulation file), and the other datasets.
+simulation file).
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ import os
 import pickle
 import struct
 import tempfile
+import zlib
 from typing import Iterator, Optional, Tuple
 
 import numpy as np
@@ -387,6 +389,13 @@ def load_cifar10_batches(root: str):
   return ArrayImages(*train), ArrayImages(*test)
 
 
+def synthetic_images(size: int, channels: int, seed: int):
+  """(train, test) stand-ins of an image dataset: ``SyntheticImages`` of
+  4096 and 512 items from ``seed`` and ``seed + 1``."""
+  return (SyntheticImages(4096, size, channels, seed),
+          SyntheticImages(512, size, channels, seed + 1))
+
+
 def get_dataset(config, device=None, evaluation: bool = False):
   """(train loader, eval loader) of NHWC float32 batches, as the JAX
   package's ``get_dataset`` gives them: of ``training.batch_size`` and
@@ -394,10 +403,14 @@ def get_dataset(config, device=None, evaluation: bool = False):
   one epoch (``evaluate`` reads it to its end).
 
   CIFAR10: [0, 1] images from the local ``cifar-10-batches-py`` files
-  under :func:`data_dir` where present, else ``SyntheticImages`` (4096
-  train and 512 test items, seeds ``config.seed`` and ``config.seed +
-  1``); as in the JAX package, ``data.uniform_dequantization`` and
-  ``data.random_flip`` are not applied on this branch.
+  under :func:`data_dir` where present, else :func:`synthetic_images`
+  from ``config.seed``; as in the JAX package, ``data.uniform_dequantization``
+  and ``data.random_flip`` are not applied on this branch.
+
+  SVHN, CELEBA, FFHQ, CelebAHQ: :func:`synthetic_images` from
+  ``config.seed`` (no files are read, as the JAX package reads none for
+  them); LSUN: the same from ``config.seed`` plus the CRC-32 of
+  ``data.category`` modulo 997.
 
   PDE: ``PDEDataset`` tuples over the synthetic rollout of ``max(trim +
   64, 400)`` frames at 200 x ``2 * image_size`` (seed ``config.seed``,
@@ -411,26 +424,32 @@ def get_dataset(config, device=None, evaluation: bool = False):
   batch_size = (config.eval.batch_size if evaluation
                 else config.training.batch_size)
   size, channels = config.data.image_size, config.data.num_channels
-  if config.data.dataset == 'CIFAR10':
+  name = config.data.dataset
+  if name == 'CIFAR10':
     datasets = load_cifar10_batches(data_dir())
     if datasets is None:
-      datasets = (SyntheticImages(4096, size, channels, config.seed),
-                  SyntheticImages(512, size, channels, config.seed + 1))
+      datasets = synthetic_images(size, channels, config.seed)
     train_ds, test_ds = datasets
-  elif config.data.dataset == 'PDE':
+  elif name in ('SVHN', 'CELEBA', 'FFHQ', 'CelebAHQ'):
+    train_ds, test_ds = synthetic_images(size, channels, config.seed)
+  elif name == 'LSUN':
+    # The category folds into the seed, so that bedroom and church differ.
+    category = str(config.data.get('category', 'bedroom'))
+    seed = config.seed + zlib.crc32(category.encode()) % 997
+    train_ds, test_ds = synthetic_images(size, channels, seed)
+  elif name == 'PDE':
     trim = int(config.data.time_trim)
     data = cached_ns_rollout(max(trim + 64, 400), 200, 2 * size,
                              config.seed, device=device)
     train_ds = PDEDataset(data, size, 'train', trim, config.seed)
     test_ds = PDEDataset(data, size, 'test', trim, config.seed + 1)
-  elif config.data.dataset in ('NC', 'NC_P'):
+  elif name in ('NC', 'NC_P'):
     data = nc_data(config)
     cut = config.data.land_cut
     train_ds = NCDataset(data, size, 'train', cut, config.seed)
     test_ds = NCDataset(data, size, 'test', cut, config.seed + 1)
   else:
-    raise NotImplementedError(
-        f'dataset {config.data.dataset} is not ported yet: ROADMAP.md A.10')
+    raise NotImplementedError(f'Dataset {name} not yet supported.')
   train_loader = NumpyLoader(train_ds, batch_size, shuffle=True,
                              seed=config.seed)
   test_loader = NumpyLoader(test_ds, batch_size, shuffle=False,

@@ -5,7 +5,9 @@ The port's layers keep the flax names and layouts (conv ``kernel`` HWIO,
 ``scale``/``bias``; the ``MLP``'s ``Dense_0``, ``Dense_1``, ...; the
 LiteFlowNet's ``Features_0``/``Features_1``, each level's ``Matching_*``,
 ``Subpixel_*`` and ``Regularization_*``, and its grouped deconvolutions'
-``weight`` (4, 4, 1, C)), so each flax leaf at path ``a/b/c`` is the
+``weight`` (4, 4, 1, C); NCSN++'s FIR ``Conv2d_0`` ``weight`` HWIO and its
+``GaussianFourierProjection_0`` ``W``, a leaf of the params, the Adam
+moments and the EMA as in JAX), so each flax leaf at path ``a/b/c`` is the
 parameter ``a.b.c`` of the torch module, copied as it is.  Every function here
 raises ``ValueError`` on a leaf that names no parameter, on a parameter
 that no leaf sets, and on a shape that differs.

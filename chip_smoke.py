@@ -6,6 +6,7 @@
                           [--pinn-steps Q] [--bpinn-steps R]
                           [--fixed-steps F] [--lfn-pinn-steps Q2]
                           [--lfn-bpinn-steps R2] [--nc-train-steps T2]
+                          [--ncsnpp-train-steps T3]
                           [--seed S] [--out DIR]
 
 Run from the root of a checkout; it needs one CUDA card, ``nvcc`` and
@@ -205,17 +206,43 @@ Run from the root of a checkout; it needs one CUDA card, ``nvcc`` and
    bpd kernel path against plain path in f32 (within 1e-3, the ODE at
    rtol = atol = 1e-3); then ``--mode sample --ckptdir`` (batch 8, N =
    100) and ``--mode eval`` (the loss) in subprocesses;
-15. print the kernel table as one JSON line (every kernel of the paths and
+15. NCSN++ (``ve/cifar10_ncsnpp_continuous`` at full width: nf 128,
+   ch_mult (1,2,2,2), 4 BigGAN resblocks a level with FIR [1,3,3,1]
+   resampling, attention at 16^2, the residual input pyramid, Fourier
+   features, ``scale_by_sigma``; 32x32x3, every parameter randomised):
+   (a) K1 and K2 against their plain versions in bf16 at batch 8, timed as
+   in phase 3 without yardsticks, at every site shape of it and of
+   ``ve/church_ncsnpp_continuous`` (256^2, ch_mult (1,1,2,2,2,2,2), 2
+   resblocks a level, output_skip and input_skip pyramids) that the
+   flagship rows do not time, and at the church config's 128^2 and 256^2
+   sites (256x256x128 and 256x256x256 the largest) forward and backward
+   (K1's data gradient timed as in phase 7; K2's recomputed backward
+   untimed) in f32 and bf16 at batch 8; (b) one full-width forward (batch
+   8) and one train step's loss and gradients (batch 128) kernel path
+   against plain path in f32 and bf16, with their launches (88 K1, 88 K1
+   data gradients and 88 K2: 44 resblocks, two sites each; the first and
+   last convs stay plain); (c) ``run_lib.train`` for steps
+   0..``--ncsnpp-train-steps`` (default 4; no snapshot sampling) at batch
+   128 in bf16 with its launches, one steady step profiled and the device
+   ms of the FIR filters (``upfirdn2d``) one forward calls, measured alone
+   with and without their backward, against the step's device-busy ms;
+   one PC request (reverse diffusion + Langevin, snr 0.16) at batch 8
+   with N cut to 100: NFE = 2 N, each evaluation 88 K1 and 88 K2 launches;
+   (d) the church config at batch 8 (cut from 64): one forward kernel path
+   against plain path in bf16 (98 K1, 98 K2) and ``run_lib.train`` for
+   steps 0..1 on the LSUN stand-in;
+16. print the kernel table as one JSON line (every kernel of the paths and
    every yardstick beside it; K3's and K3 backward's rows also carry their
    phase-2 and B-PINN launches, device ms and bounds a step, and their
    LiteFlowNet numbers (``lfn_*``); K1's, K1 data gradient's and K2's
-   their DPS guided evaluation's and request's and their ``vp/nc_ddpmpp``
-   train step's (``nc_train_*``); K1 JVP's and K2 JVP's launches over the
-   evaluate run and an evaluation),
+   their DPS guided evaluation's and request's, their ``vp/nc_ddpmpp``
+   train step's (``nc_train_*``) and their NCSN++ launches and new sites'
+   times (``ncsnpp_*``, ``highres_*``); K1 JVP's and K2 JVP's launches
+   over the evaluate run and an evaluation),
    then the ``{"ok": true, ...}`` line.  With ``--out DIR`` the per-shape
    details go to ``DIR/chip_smoke.json``.
 
-Error limits (relative to max |reference|), in phases 3 to 5, 7 and 9 to 14:
+Error limits (relative to max |reference|), in phases 3 to 5, 7 and 9 to 15:
 f32 1e-4 (K3 at third order 1e-5); bf16 3e-2, the bound
 tests/test_winograd.py holds bf16 Winograd to.
 
@@ -258,6 +285,8 @@ from b_pinn_kalman_filter_tpu_torch.ops import conv3x3 as k1
 from b_pinn_kalman_filter_tpu_torch.ops import correlation as k3
 from b_pinn_kalman_filter_tpu_torch.ops import groupnorm as k2
 from b_pinn_kalman_filter_tpu_torch.ops import ns_step as k4
+from b_pinn_kalman_filter_tpu_torch.ops import resample
+from b_pinn_kalman_filter_tpu_torch.ops import upfirdn2d as upfirdn2d_op
 from b_pinn_kalman_filter_tpu_torch.pinn import bayes, pinn_lib
 from b_pinn_kalman_filter_tpu_torch.pinn import losses as pinn_losses
 from b_pinn_kalman_filter_tpu_torch.pinn.pinn import (
@@ -512,14 +541,36 @@ def randomize_(model, seed):
     p.copy_(v)
 
 
-def flagship(dtype, kernels, seed):
-  config = configs.get_config(CONFIG)
+# Randomised parameters by (config name, seed), kept on the host: the
+# first model of a config is drawn by its init and ``randomize_`` (seconds
+# of host RNG at full width), the later ones copy the same values.
+RANDOMIZED = {}
+
+
+def randomized_model(name, dtype, kernels, seed):
+  """(config, model): ``name``'s config in ``dtype`` and its model on the
+  card, every parameter randomised by ``randomize_`` from ``seed``."""
+  config = configs.get_config(name)
   config.tpu.compute_dtype = {torch.float32: 'float32',
                               torch.bfloat16: 'bfloat16'}[dtype]
-  model = registry.create_model(config, device='cuda', seed=seed,
-                                kernels=kernels)
-  randomize_(model, seed)
+  key = (name, seed)
+  if key not in RANDOMIZED:
+    model = registry.create_model(config, device='cuda', seed=seed,
+                                  kernels=kernels)
+    randomize_(model, seed)
+    RANDOMIZED[key] = {n: p.detach().cpu() for n, p in
+                       model.named_parameters()}
+    return config, model
+  model = registry.get_model(config.model.name)(config, kernels=kernels)
+  model = model.to('cuda').eval()
+  with torch.no_grad():
+    for n, p in model.named_parameters():
+      p.copy_(RANDOMIZED[key][n])
   return config, model
+
+
+def flagship(dtype, kernels, seed):
+  return randomized_model(CONFIG, dtype, kernels, seed)
 
 
 def model_inputs(config, seed, batch=BATCH):
@@ -638,13 +689,14 @@ def check_norm(shape, dtype, seed, batch=BATCH, yardstick=True):
   return row
 
 
-def kernel_phase(name, sites, check, seed, **kw):
-  """Every site shape in f32 and bf16 (``kw`` to ``check``: the batch,
-  whether to time the yardstick); returns (rows, per-forward totals in
-  bf16, more per-forward numbers, failures)."""
+def kernel_phase(name, sites, check, seed,
+                 dtypes=(torch.float32, torch.bfloat16), **kw):
+  """Every site shape in each of ``dtypes`` (f32 and bf16; ``kw`` to
+  ``check``: the batch, whether to time the yardstick); returns (rows,
+  per-forward totals in bf16, more per-forward numbers, failures)."""
   rows, failures = [], []
   for i, (shape, count) in enumerate(sorted(sites.items())):
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in dtypes:
       row = check(shape, dtype, seed + i, **kw)
       row.update(shape=list(shape), dtype=str(dtype).split('.')[-1],
                  per_forward=count, tol=TOL[dtype])
@@ -992,17 +1044,24 @@ def dgrad_phase(sites, batch, seed):
   return rows, total, failures
 
 
-def train_grad_phase(seed):
+def train_grad_phase(seed, build=None, bf16_tree=False):
   """One train step's loss and gradients, kernel path against plain path,
-  at the flagship's full width and batch: the same randomised parameters,
+  at the full width and train batch of the flagship (or of the model
+  ``build(dtype, kernels, seed)`` gives): the same randomised parameters,
   batch, t, z and dropout generator, in f32 (TF32 off) and bf16; each
   leaf's gradient within the limit of max |plain gradient| of that leaf
-  (of the largest leaf, for a leaf that is zero but for rounding).
+  (of the largest leaf, for a leaf that is zero but for rounding, or
+  outside the graph: NCSN++'s Fourier ``W``), and the kernel path's
+  launches in bf16 (``launches``).  With ``bf16_tree`` the bf16 gradients
+  are held relative to the largest leaf's, as the CPU tests hold their
+  trees, and reported leaf by leaf beside the plain path's own spread: the
+  plain path again on the batch moved by 2^-9 of itself at random.
   Returns (report, failures)."""
   out, failures = {}, []
+  build = build or flagship
   for dtype in (torch.float32, torch.bfloat16):
-    config, kernel_model = flagship(dtype, True, seed)
-    _, plain_model = flagship(dtype, False, seed)
+    config, kernel_model = build(dtype, True, seed)
+    _, plain_model = build(dtype, False, seed)
     sde, _ = sde_lib.get_sde(config)
     batch_size, size = config.training.batch_size, config.data.image_size
     g = torch.Generator(device='cuda').manual_seed(seed)
@@ -1014,13 +1073,33 @@ def train_grad_phase(seed):
     results = {}
     for path, model in (('kernel', kernel_model), ('plain', plain_model)):
       params = dict(model.named_parameters())
-      loss_fn = losses.get_sde_loss_fn(sde, model, True, reduce_mean=True,
-                                       likelihood_weighting=False)
+      loss_fn = losses.get_sde_loss_fn(
+          sde, model, True, reduce_mean=config.training.reduce_mean,
+          likelihood_weighting=False)
       dropout = torch.Generator(device='cuda').manual_seed(seed + 1)
+      reset_counts()
       loss = loss_fn(params, batch, dropout, noise=(t, z))
-      grads = torch.autograd.grad(loss, list(params.values()))
+      grads = torch.autograd.grad(loss, list(params.values()),
+                                  allow_unused=True, materialize_grads=True)
+      torch.cuda.synchronize()
+      if path == 'kernel':
+        step_launches = dict(k1.conv3x3.launches_by_use,
+                             groupnorm_act=k2.groupnorm_act.launches)
       results[path] = (float(loss.detach()), dict(zip(params, grads)))
       del loss, grads
+    if bf16_tree and dtype == torch.bfloat16:
+      params = dict(plain_model.named_parameters())
+      moved = batch * (1 + 2 ** -9 * torch.randn(
+          batch.shape, generator=g, device='cuda').sign())
+      loss = losses.get_sde_loss_fn(
+          sde, plain_model, True, reduce_mean=config.training.reduce_mean,
+          likelihood_weighting=False)(
+              params, moved, torch.Generator(device='cuda').manual_seed(
+                  seed + 1), noise=(t, z))
+      spread = dict(zip(params, torch.autograd.grad(
+          loss, list(params.values()), allow_unused=True,
+          materialize_grads=True)))
+      del loss
     (k_loss, k_grads), (p_loss, p_grads) = results['kernel'], results['plain']
     loss_rel = abs(k_loss - p_loss) / abs(p_loss)
     # A leaf whose gradient is zero but for rounding (an attention block's
@@ -1042,18 +1121,46 @@ def train_grad_phase(seed):
                      max_leaf_rel=leaf_errs[worst[0]],
                      worst_leaves={n: leaf_errs[n] for n in worst},
                      leaves=len(leaf_errs), zero_leaves=zero,
-                     tol=TOL[dtype])
+                     tol=TOL[dtype], launches=step_launches)
+    gated = leaf_errs[worst[0]]
+    if bf16_tree and dtype == torch.bfloat16:
+      def tree(a, b):
+        return max(float((a[n].float() - b[n].float()).abs().max())
+                   for n in b) / top
+      spread_errs = {n: float((spread[n].float() - p_grads[n].float())
+                              .abs().max()) / (
+                                  top if n in zero
+                                  else float(p_grads[n].abs().max()))
+                     for n in p_grads}
+      out[name].update(
+          tree_rel=tree(k_grads, p_grads),
+          spread_tree_rel=tree(spread, p_grads),
+          spread_max_leaf_rel=max(spread_errs.values()),
+          spread_of_worst_leaves={n: spread_errs[n] for n in worst},
+          worst_leaf_scale={n: float(p_grads[n].abs().max()) / top
+                            for n in worst})
+      gated = out[name]['tree_rel']
+      log(f'  bf16 gradients relative to the largest leaf: kernel vs plain '
+          f'{out[name]["tree_rel"]:.2e} (limit {TOL[dtype]}); the plain '
+          f'path against itself on the batch moved by 2^-9: '
+          f'{out[name]["spread_tree_rel"]:.2e}, leaf by leaf up to '
+          f'{out[name]["spread_max_leaf_rel"]:.2e} (at the worst leaves '
+          + ', '.join(f'{spread_errs[n]:.2e}' for n in worst)
+          + '; their scale to the largest leaf '
+          + ', '.join(f'{v:.2e}' for v in
+                      out[name]['worst_leaf_scale'].values()) + ')')
+      del spread
     log(f'  train-step gradients {name}, batch {batch_size}: loss kernel '
         f'{k_loss:.6f} plain {p_loss:.6f} (rel {loss_rel:.2e}); '
         f'{len(leaf_errs)} leaves ({len(zero)} zero but for rounding, '
         f'held relative to the largest: {zero[:3]}...), worst rel '
         + ', '.join(f'{n} {leaf_errs[n]:.2e}' for n in worst)
-        + f' (limit {TOL[dtype]})')
-    if not (finite and loss_rel <= TOL[dtype]
-            and leaf_errs[worst[0]] <= TOL[dtype]):
+        + f' (limit {TOL[dtype]}); kernel-path launches {step_launches}')
+    if not (finite and loss_rel <= TOL[dtype] and gated <= TOL[dtype]):
       failures.append(f'train-step gradients {name}: loss rel '
                       f'{loss_rel:.3e}, worst leaf {worst[0]} '
-                      f'{leaf_errs[worst[0]]:.3e}, finite {finite}')
+                      f'{leaf_errs[worst[0]]:.3e}, held {gated:.3e}, '
+                      f'finite {finite}')
     del kernel_model, plain_model, results, k_grads, p_grads
     torch.cuda.empty_cache()
   return out, failures
@@ -2570,7 +2677,8 @@ def lfn_phase(args):
 NC_TRAIN_CONFIG = 'vp/nc_ddpmpp'
 
 
-def nc_train_phase(train_steps, per_forward, seed):
+def nc_train_phase(train_steps, per_forward, seed, name=NC_TRAIN_CONFIG,
+                   batch_size=None):
   """``run_lib.train`` at ``NC_TRAIN_CONFIG`` (the NC U-Net: nf 128,
   ch_mult (1,2,2,2), 4 res blocks, 64x64x1, batch 64, bf16) through the
   discrete DDPM loss, for steps 0..``train_steps``, on the NC stand-in
@@ -2580,9 +2688,11 @@ def nc_train_phase(train_steps, per_forward, seed):
   forward), and K1's launches by kernel.  Cut: no snapshot sampling (the
   config's N = 2000 ancestral steps), the eval at the first step only.
   Checks: finite losses, parameters moved, launches.  Returns (report,
-  failures)."""
-  config = configs.get_config(NC_TRAIN_CONFIG)
+  failures).  ``name`` and ``batch_size`` run another config the same
+  way (NCSN++: the continuous DSM loss)."""
+  config = configs.get_config(name)
   t = config.training
+  t.batch_size = batch_size or t.batch_size
   t.n_iters = train_steps
   t.snapshot_sampling = False
   t.log_freq = t.eval_freq = t.snapshot_freq_for_preemption = 10 ** 6
@@ -2630,17 +2740,18 @@ def nc_train_phase(train_steps, per_forward, seed):
       f'of {len(steady)} event-free steps after the first two, '
       f'synchronised): {t.batch_size / step_s:.1f} imgs/s; first step '
       f'{history[0]["seconds"]:.2f} s')
-  log(f'  DDPM losses {[f"{v:.5f}" for v in losses_]}; peak memory '
+  log(f'  losses {[f"{v:.5f}" for v in losses_]}; peak memory '
       f'{peak / 2**30:.2f} GiB; parameters moved {moved}; launches '
       f'{launches} (expected {expected}); snapshots {snapshots}')
   failures = []
   if not np.isfinite(losses_).all():
-    failures.append('nc train: a loss is not finite')
+    failures.append(f'{name} train: a loss is not finite')
   if not moved:
-    failures.append('nc train: no parameter moved')
+    failures.append(f'{name} train: no parameter moved')
   if (launches['conv3x3'] != expected['conv3x3']
       or launches['groupnorm_act'] != expected['groupnorm_act']):
-    failures.append(f'nc train launches {launches}, expected {expected}')
+    failures.append(f'{name} train launches {launches}, expected '
+                    f'{expected}')
   return report, failures
 
 
@@ -2651,13 +2762,7 @@ def nc_model(dtype, kernels, seed):
   """The NC U-Net of ``INVERSE_CONFIG`` (nf 128, ch_mult (1,2,2,2), 4 res
   blocks, attention at 16^2, 64x64x1) in ``dtype``, every parameter
   randomised."""
-  config = configs.get_config(INVERSE_CONFIG)
-  config.tpu.compute_dtype = {torch.float32: 'float32',
-                              torch.bfloat16: 'bfloat16'}[dtype]
-  model = registry.create_model(config, device='cuda', seed=seed,
-                                kernels=kernels)
-  randomize_(model, seed)
-  return config, model
+  return randomized_model(INVERSE_CONFIG, dtype, kernels, seed)
 
 
 def inverse_counts():
@@ -2928,6 +3033,353 @@ def inverse_cli_phase(workdir):
                                         'observation.png']
       or mse is None or not np.isfinite(mse) or not pngs):
     failures.append(f'CLI inverse: {report}; stderr {proc.stderr[-2000:]}')
+  return report, failures
+
+
+NCSNPP_CONFIG = 've/cifar10_ncsnpp_continuous'
+HIGHRES_CONFIG = 've/church_ncsnpp_continuous'
+# Cuts: the 256^2 config's batch 64 to 8, the PC sampler's N 1000 to 100.
+HIGHRES_BATCH = 8
+NCSNPP_SAMPLE_STEPS = 100
+# The 256^2 config's sites checked forward and backward in f32 and bf16:
+# those of its 128^2 and 256^2 levels.
+HIGHRES_BIG = 128
+
+
+def ncsnpp_model(dtype, kernels, seed, name=NCSNPP_CONFIG):
+  """NCSN++ at ``name``'s full width in ``dtype``, every parameter
+  randomised."""
+  return randomized_model(name, dtype, kernels, seed)
+
+
+def highres_model(dtype, kernels, seed):
+  return ncsnpp_model(dtype, kernels, seed, HIGHRES_CONFIG)
+
+
+def ncsnpp_inputs(config, seed, batch=BATCH):
+  """(x in [0, 1], noise levels log-uniform in [sigma_min, sigma_max]):
+  the VE model's labels."""
+  g = torch.Generator(device='cuda').manual_seed(seed)
+  size, ch = config.data.image_size, config.data.num_channels
+  x = torch.rand((batch, size, size, ch), generator=g, device='cuda')
+  lo = float(np.log(config.model.sigma_min))
+  hi = float(np.log(config.model.sigma_max))
+  labels = torch.exp(torch.rand((batch,), generator=g, device='cuda')
+                     * (hi - lo) + lo)
+  return x, labels
+
+
+def check_site_grads(kind, shape, dtype, seed, batch):
+  """K1 (``kind`` 'conv3x3', ``shape`` (H, W, Cin, Cout)) or K2
+  ('groupnorm_act', (H, W, C, G), SiLU) at ``batch``: the output and every
+  input's gradient against autograd through the plain version, untimed.
+  Returns {what: rel error}."""
+  g = torch.Generator(device='cuda').manual_seed(seed)
+  H, W = shape[:2]
+  if kind == 'conv3x3':
+    cin, cout = shape[2:]
+    args = ((torch.randn((batch, H, W, cin), generator=g, device='cuda')
+             .to(dtype)),
+            torch.randn((3, 3, cin, cout), generator=g, device='cuda')
+            / (9 * cin) ** 0.5,
+            0.1 * torch.randn((cout,), generator=g, device='cuda'))
+    names, fn, plain = ('y', 'dx', 'dw', 'db'), k1.conv3x3, k1.conv3x3_plain
+  else:
+    C, G = shape[2:]
+    cout = C
+    args = ((torch.randn((batch, H, W, C), generator=g, device='cuda') * 2
+             + 0.5).to(dtype),
+            1 + 0.1 * torch.randn((C,), generator=g, device='cuda'),
+            0.1 * torch.randn((C,), generator=g, device='cuda'))
+    names = ('y', 'dx', 'dscale', 'dbias')
+
+    def fn(x, scale, bias):
+      return k2.groupnorm_act(x, scale, bias, G, 'silu')
+
+    def plain(x, scale, bias):
+      return k2.groupnorm_act_plain(x, scale, bias, G, 'silu')
+  dy = torch.randn((batch, H, W, cout), generator=g, device='cuda').to(dtype)
+  out = []
+  for f in (fn, plain):
+    leaves = [a.detach().requires_grad_() for a in args]
+    y = f(*leaves)
+    out.append([y.detach()] + list(torch.autograd.grad(y, leaves, dy)))
+    del y, leaves
+  errs = {n: rel_err(got, want)[1] for n, got, want in zip(names, *out)}
+  del out
+  torch.cuda.empty_cache()
+  return errs
+
+
+def fir_calls(model, config, seed, batch):
+  """The FIR filters (``upfirdn2d``) of one forward: {(shape, dtype, up,
+  down, pad, kernel bytes): (count, kernel)}."""
+  calls = {}
+  inner = resample.upfirdn2d
+
+  def record(x, kernel, up=1, down=1, pad=(0, 0)):
+    k = np.asarray(kernel, np.float32)
+    key = (tuple(x.shape), x.dtype, up, down, tuple(pad), k.tobytes())
+    calls[key] = (calls.get(key, (0, k))[0] + 1, k)
+    return inner(x, kernel, up=up, down=down, pad=pad)
+
+  resample.upfirdn2d = record
+  try:
+    with torch.inference_mode():
+      model(*ncsnpp_inputs(config, seed, batch), train=False)
+  finally:
+    resample.upfirdn2d = inner
+  return calls
+
+
+def fir_device_ms(calls, seed):
+  """Device ms of one forward's FIR filters, alone and with their
+  backward (as a train step runs them: both branches of a BigGAN block
+  need their gradients): every call in one profiler trace.  (None, None)
+  where no trace of them came out complete (a measurement, not a
+  check)."""
+  g = torch.Generator(device='cuda').manual_seed(seed)
+  runs = []
+  for (shape, dtype, up, down, pad, _), (count, k) in calls.items():
+    x = torch.randn(shape, generator=g, device='cuda').to(dtype)
+    y = upfirdn2d_op.upfirdn2d(x, k, up=up, down=down, pad=pad)
+    dy = torch.randn(y.shape, generator=g, device='cuda').to(dtype)
+    runs.append((x, dy, k, dict(up=up, down=down, pad=pad), count))
+
+  def forward():
+    for x, _, k, kw, count in runs:
+      for _ in range(count):
+        upfirdn2d_op.upfirdn2d(x, k, **kw)
+
+  def both():
+    for x, dy, k, kw, count in runs:
+      xg = x.detach().requires_grad_()
+      for _ in range(count):
+        torch.autograd.grad(upfirdn2d_op.upfirdn2d(xg, k, **kw), xg, dy)
+
+  try:
+    with torch.inference_mode():
+      fwd = device_ms(forward, 3, 1)
+    return fwd, device_ms(both, 3, 1)
+  except RuntimeError as e:
+    log(f'  FIR filters not timed: {e}')
+    return None, None
+
+
+def ncsnpp_kernel_phase(flagship_sites, seed):
+  """(a) K1 and K2 against their plain versions at NCSN++'s sites: in bf16
+  at batch 8, timed, at every site shape of ``NCSNPP_CONFIG`` and of
+  ``HIGHRES_CONFIG`` that the flagship rows do not time; at the 128^2 and
+  256^2 sites of ``HIGHRES_CONFIG`` also in f32, and forward and backward
+  (K1's data gradient by ``dgrad_phase``, timed in bf16; K2's recomputed
+  backward, untimed) in f32 and bf16.  Returns (report, failures)."""
+  failures, report = [], {}
+  sites = {}
+  for name, build in (('ncsnpp', ncsnpp_model), ('highres', highres_model)):
+    config, model = build(torch.bfloat16, True, seed)
+    conv, norm = site_shapes(model, config, seed, batch=1)
+    sites[name] = (conv, norm)
+    report[f'{name}_per_forward'] = dict(conv3x3=sum(conv.values()),
+                                         groupnorm_act=sum(norm.values()))
+    del model
+  torch.cuda.empty_cache()
+  flag_conv, flag_norm = flagship_sites
+  new_conv = collections.Counter()
+  new_norm = collections.Counter()
+  for conv, norm in sites.values():
+    new_conv.update({s: n for s, n in conv.items() if s not in flag_conv})
+    new_norm.update({s: n for s, n in norm.items() if s not in flag_norm})
+  log(f'  sites a forward: {report}; not timed by the flagship rows: '
+      f'{len(new_conv)} K1 and {len(new_norm)} K2 shapes')
+  conv_rows, conv_total, _, f1 = kernel_phase(
+      'conv3x3', new_conv, check_conv, seed, dtypes=(torch.bfloat16,),
+      yardstick=False)
+  norm_rows, norm_total, _, f2 = kernel_phase(
+      'groupnorm_act', new_norm, check_norm, seed + 100,
+      dtypes=(torch.bfloat16,), yardstick=False)
+  failures += f1 + f2
+  hr_conv, hr_norm = sites['highres']
+  big_conv = {s: n for s, n in hr_conv.items() if s[0] >= HIGHRES_BIG}
+  big_norm = {s: n for s, n in hr_norm.items() if s[0] >= HIGHRES_BIG}
+  grads = []
+  for kind, big in (('conv3x3', big_conv), ('groupnorm_act', big_norm)):
+    for i, shape in enumerate(sorted(big)):
+      for dtype in (torch.float32, torch.bfloat16):
+        errs = check_site_grads(kind, shape, dtype, seed + 200 + i,
+                                HIGHRES_BATCH)
+        name = str(dtype).split('.')[-1]
+        row = dict(kind=kind, shape=list(shape), dtype=name,
+                   batch=HIGHRES_BATCH, rel_errs=errs, tol=TOL[dtype])
+        if kind == 'groupnorm_act':
+          row['on_chip'] = k2.groupnorm_plan(
+              *shape, torch.tensor([], dtype=dtype).element_size())[
+                  'on_chip']
+        grads.append(row)
+        log(f'  {kind} {shape} {name} batch {HIGHRES_BATCH}, forward and '
+            'backward: ' + ', '.join(f'{k} {v:.2e}' for k, v in errs.items())
+            + (f' (on chip {row["on_chip"]})' if 'on_chip' in row else ''))
+        if not max(errs.values()) <= TOL[dtype]:
+          failures.append(f'{kind} {shape} {name}: {errs}')
+  dgrad_rows, dgrad_total, f3 = dgrad_phase(big_conv, HIGHRES_BATCH, seed)
+  failures += f3
+  if (256, 256, 128, 32) not in big_norm:
+    failures.append('the 256x256x128 K2 site is missing')
+  report.update(conv3x3=conv_rows, groupnorm_act=norm_rows,
+                conv3x3_total=conv_total, groupnorm_act_total=norm_total,
+                highres_grads=grads, highres_data_grad=dgrad_rows,
+                highres_data_grad_total=dgrad_total,
+                new_conv_shapes=len(new_conv), new_norm_shapes=len(new_norm))
+  return report, failures
+
+
+def ncsnpp_train_profile(seed):
+  """One steady ``NCSNPP_CONFIG`` train step (batch 128, bf16) under the
+  profiler, and the device ms of its FIR filters, measured alone at the
+  shapes one forward calls them with (forward and backward).  Returns
+  (report, failures)."""
+  config = configs.get_config(NCSNPP_CONFIG)
+  t = config.training
+  model = registry.create_model(config, device='cuda', seed=seed)
+  tx = losses.get_optimizer(config)
+  state = state_lib.create_train_state(dict(model.named_parameters()), tx,
+                                       config.model.ema_rate)
+  step_fn = losses.get_step_fn(sde_lib.get_sde(config)[0], model, tx,
+                               train=True, reduce_mean=t.reduce_mean,
+                               continuous=True)
+  g = torch.Generator(device='cuda').manual_seed(seed)
+  size = config.data.image_size
+  batch = torch.rand((t.batch_size, size, size, config.data.num_channels),
+                     generator=g, device='cuda') * 2 - 1
+  step_fn(state, batch, g)
+  out, _ = profiled(f'{NCSNPP_CONFIG} train step (batch {t.batch_size}, '
+                    'bf16)', lambda: step_fn(state, batch, g))
+  calls = fir_calls(model, config, seed, t.batch_size)
+  del state, model
+  torch.cuda.empty_cache()
+  fwd, both = fir_device_ms(calls, seed)
+  busy_ms = out['device_busy_s'] * 1e3
+  out.update(fir_calls=sum(n for n, _ in calls.values()),
+             fir_shapes=len(calls), fir_forward_ms=fwd, fir_step_ms=both,
+             fir_step_share=None if both is None else both / busy_ms)
+  if both is not None:
+    log(f'  FIR filters: {out["fir_calls"]} calls a forward '
+        f'({len(calls)} shapes), {fwd:.3f} device ms forward, {both:.3f} '
+        f'with their backward: {out["fir_step_share"]:.3f} of the step\'s '
+        f'{busy_ms:.1f} device-busy ms (measured apart from the step)')
+  return out, []
+
+
+def ncsnpp_sample_phase(seed, per_forward):
+  """One PC request at ``NCSNPP_CONFIG`` (reverse diffusion + Langevin,
+  snr 0.16), batch 8, N = ``NCSNPP_SAMPLE_STEPS`` (cut from 1000), bf16,
+  random weights: NFE = 2 N, every evaluation launching the forward's K1
+  and K2 sites, samples finite.  Returns (report, failures)."""
+  config, model = ncsnpp_model(torch.bfloat16, True, seed)
+  config.model.num_scales = NCSNPP_SAMPLE_STEPS
+  reset_counts()
+  torch.cuda.synchronize()
+  start = time.time()
+  samples, nfe = run_lib.sample(config, batch_size=BATCH, seed=seed,
+                                device='cuda', model=model)
+  torch.cuda.synchronize()
+  seconds = time.time() - start
+  launches = dict(conv3x3=k1.conv3x3.launches,
+                  groupnorm_act=k2.groupnorm_act.launches)
+  by_kernel = dict(k1.conv3x3.launches_by_kernel)
+  finite = bool(torch.isfinite(samples).all())
+  per_eval = {k: v / max(nfe, 1) for k, v in launches.items()}
+  report = dict(steps=NCSNPP_SAMPLE_STEPS, nfe=nfe, seconds=seconds,
+                imgs_per_s=BATCH / seconds, ms_per_evaluation=(
+                    1e3 * seconds / max(nfe, 1)),
+                launches=launches, per_evaluation=per_eval,
+                conv3x3_by_kernel=by_kernel, finite=finite,
+                shape=list(samples.shape))
+  log(f'  request: {seconds:.2f} s, {BATCH / seconds:.3f} imgs/s, NFE {nfe} '
+      f'(N = {NCSNPP_SAMPLE_STEPS}), {report["ms_per_evaluation"]:.2f} ms '
+      f'an evaluation; launches {launches} ({per_eval} an evaluation, K1 '
+      f'by kernel {by_kernel}); finite {finite}')
+  failures = []
+  if nfe != 2 * NCSNPP_SAMPLE_STEPS:
+    failures.append(f'ncsnpp PC request: NFE {nfe}, expected '
+                    f'{2 * NCSNPP_SAMPLE_STEPS}')
+  if any(launches[k] != per_forward[k] * nfe for k in launches):
+    failures.append(f'ncsnpp PC request launches {launches}, expected '
+                    f'{per_forward} x {nfe}')
+  if by_kernel['direct'] or not finite:
+    failures.append(f'ncsnpp PC request: K1 by kernel {by_kernel}, finite '
+                    f'{finite}')
+  return report, failures
+
+
+def ncsnpp_phase(args, flagship_sites):
+  """The NCSN++ group (phase 15): (a) K1 and K2 against plain at the new
+  site shapes; (b) the full-width forward and a train step's gradients,
+  kernel path against plain path, with their launches; (c)
+  ``run_lib.train``, one profiled step with the FIR filters' share, one
+  PC request; (d) the 256^2 config's forward, kernel path against plain
+  path, and ``run_lib.train`` for two steps.  Returns (report,
+  failures)."""
+  report, failures = {}, []
+  log(f'[NCSN++ (a): K1 and K2 vs plain at the {NCSNPP_CONFIG} and '
+      f'{HIGHRES_CONFIG} sites the flagship rows do not time (bf16, batch '
+      f'{BATCH}); at {HIGHRES_CONFIG}\'s 128^2 and 256^2 sites forward and '
+      f'backward in f32 and bf16, batch {HIGHRES_BATCH}]')
+  report['kernels'], f = ncsnpp_kernel_phase(flagship_sites, args.seed)
+  failures += f
+  per_forward = report['kernels']['ncsnpp_per_forward']
+  hr_per_forward = report['kernels']['highres_per_forward']
+  log(f'[NCSN++ (b): full-width forward, kernel path vs plain path, '
+      f'{NCSNPP_CONFIG}, batch {BATCH}, f32 and bf16]')
+  report['forward'], f = forward_phase(args.seed, ncsnpp_model,
+                                       ncsnpp_inputs, timed=False)
+  failures += f
+  log(f'[NCSN++ (b): one train step\'s loss and gradients, kernel path vs '
+      f'plain path, batch '
+      f'{configs.get_config(NCSNPP_CONFIG).training.batch_size}, f32 and '
+      f'bf16]')
+  report['train_grads'], f = train_grad_phase(args.seed, ncsnpp_model,
+                                              bf16_tree=True)
+  failures += f
+  step = report['train_grads']['bfloat16']['launches']
+  want_step = dict(forward=per_forward['conv3x3'],
+                   data_grad=per_forward['conv3x3'], jvp=0,
+                   groupnorm_act=per_forward['groupnorm_act'])
+  for dtype in ('float32', 'bfloat16'):
+    got = report['forward'][dtype]['launches']
+    if got != per_forward:
+      failures.append(f'ncsnpp forward {dtype} launches {got}, expected '
+                      f'{per_forward}')
+  if step != want_step:
+    failures.append(f'ncsnpp train step launches {step}, expected '
+                    f'{want_step}')
+  log(f'[NCSN++ (c): run_lib.train, {NCSNPP_CONFIG}, bf16, steps '
+      f'0..{args.ncsnpp_train_steps}, no snapshot sampling]')
+  report['train'], f = nc_train_phase(args.ncsnpp_train_steps, per_forward,
+                                      args.seed, NCSNPP_CONFIG)
+  failures += f
+  log('[NCSN++ (c): one steady train step under torch.profiler; the FIR '
+      'filters\' device ms]')
+  report['train_profile'], f = ncsnpp_train_profile(args.seed)
+  failures += f
+  log(f'[NCSN++ (c): one PC request, reverse diffusion + Langevin, batch '
+      f'{BATCH}, N = {NCSNPP_SAMPLE_STEPS} (cut from 1000), bf16]')
+  report['sample'], f = ncsnpp_sample_phase(args.seed, per_forward)
+  failures += f
+  log(f'[NCSN++ (d): {HIGHRES_CONFIG} (256^2, output_skip + input_skip), '
+      f'batch {HIGHRES_BATCH} (cut from 64): forward kernel path vs plain '
+      f'path in bf16, run_lib.train steps 0..1]')
+  report['highres_forward'], f = forward_phase(
+      args.seed, highres_model, ncsnpp_inputs, dtypes=(torch.bfloat16,),
+      batch=HIGHRES_BATCH, timed=False)
+  failures += f
+  got = report['highres_forward']['bfloat16']['launches']
+  if got != hr_per_forward:
+    failures.append(f'highres forward launches {got}, expected '
+                    f'{hr_per_forward}')
+  report['highres_train'], f = nc_train_phase(
+      1, hr_per_forward, args.seed, HIGHRES_CONFIG, HIGHRES_BATCH)
+  failures += f
+  torch.cuda.empty_cache()
   return report, failures
 
 
@@ -3494,15 +3946,26 @@ def eval_cli_phase(train_dir, workdir):
   return report, failures
 
 
-def forward_phase(seed):
-  """Full-width forward, every parameter randomised: kernels vs plain."""
+def forward_phase(seed, build=None, inputs=None, dtypes=None, batch=BATCH,
+                  timed=True):
+  """Full-width forward, every parameter randomised: kernels vs plain, of
+  the flagship (or of ``build(dtype, kernels, seed)``'s model on
+  ``inputs(config, seed, batch)``), in f32 and bf16 (or ``dtypes``), with
+  the kernel path's launches in its last dtype; each path's forward ms on
+  the host's clock and, with ``timed``, in device time (a profiler trace
+  of a few forwards)."""
   out, failures = {}, []
-  for dtype in (torch.float32, torch.bfloat16):
-    config, kernel_model = flagship(dtype, True, seed)
-    _, plain_model = flagship(dtype, False, seed)
-    x, labels = model_inputs(config, seed)
+  build, inputs = build or flagship, inputs or model_inputs
+  for dtype in dtypes or (torch.float32, torch.bfloat16):
+    config, kernel_model = build(dtype, True, seed)
+    _, plain_model = build(dtype, False, seed)
+    x, labels = inputs(config, seed, batch)
     with torch.inference_mode():
+      reset_counts()
       got = kernel_model(x, labels, train=False)
+      torch.cuda.synchronize()
+      launches = dict(conv3x3=k1.conv3x3.launches,
+                      groupnorm_act=k2.groupnorm_act.launches)
       want = plain_model(x, labels, train=False)
       torch.cuda.synchronize()
       abs_err, rel = rel_err(got, want)
@@ -3510,15 +3973,17 @@ def forward_phase(seed):
       ms = {}
       for path, net in (('kernel', kernel_model), ('plain', plain_model)):
         ms[path] = time_ms(lambda: net(x, labels, train=False), 5, 1)
-        ms[path + '_device'] = device_ms(lambda: net(x, labels, train=False),
-                                         3, 1)
+        ms[path + '_device'] = (device_ms(
+            lambda: net(x, labels, train=False), 3, 1) if timed
+            else float('nan'))
     name = str(dtype).split('.')[-1]
     out[name] = dict(max_abs_err=abs_err, rel_err=rel, tol=TOL[dtype],
                      max_abs_out=float(want.abs().max()),
                      kernel_forward_ms=ms['kernel'],
                      plain_forward_ms=ms['plain'],
                      kernel_forward_device_ms=ms['kernel_device'],
-                     plain_forward_device_ms=ms['plain_device'])
+                     plain_forward_device_ms=ms['plain_device'],
+                     launches=launches)
     log(f'  forward {name}: abs {abs_err:.3e} rel {rel:.3e} '
         f'(limit {TOL[dtype]}), max|y| {out[name]["max_abs_out"]:.3e}, '
         f'forward ms kernel path {ms["kernel"]:.2f} (device '
@@ -3559,6 +4024,9 @@ def main():
                       '4; even)')
   parser.add_argument('--nc-train-steps', type=int, default=4,
                       help='vp/nc_ddpmpp DDPM train steps after step 0 '
+                      '(default 4)')
+  parser.add_argument('--ncsnpp-train-steps', type=int, default=4,
+                      help=f'{NCSNPP_CONFIG} train steps after step 0 '
                       '(default 4)')
   parser.add_argument('--seed', type=int, default=0)
   parser.add_argument('--out', default=None,
@@ -3857,6 +4325,9 @@ def main():
                                              os.path.join(tmp, 'sample'))
   failures += f28
   train_tmp.cleanup()
+
+  report['ncsnpp'], f29 = ncsnpp_phase(args, (conv_sites, norm_sites))
+  failures += f29
   eval_launches = report['eval']['launches']
   dps_launches = report['inverse']['dps_dpm']['launches']
 
@@ -3935,6 +4406,44 @@ def main():
                   for k in ('ms', 'plain_ms', 'bound_ms')})
     return out
 
+  pp = report['ncsnpp']
+  pp_kernels = pp['kernels']
+
+  def ncsnpp_keys(kind):
+    """A kernel's numbers on the NCSN++ paths (``kind`` 'forward' and
+    'data_grad' for K1, 'groupnorm_act' for K2): launches a forward, a
+    train step, a PC evaluation and over the train and PC runs at
+    ``NCSNPP_CONFIG`` (batch 128 and 8, bf16), a forward at
+    ``HIGHRES_CONFIG`` and over its two train steps (batch 8); device ms
+    of the site shapes the flagship rows do not time (bf16, batch 8, one
+    forward's count of each) and, for K1's data gradient, of the 256^2
+    config's 128^2 and 256^2 sites (batch 8)."""
+    per = pp_kernels['ncsnpp_per_forward']
+    hr = pp_kernels['highres_per_forward']
+    if kind == 'groupnorm_act':
+      run = lambda r: r['launches']['groupnorm_act']
+      key, step = 'groupnorm_act', pp['train_grads']['bfloat16'][
+          'launches']['groupnorm_act']
+    else:
+      run = lambda r: r['launches']['conv3x3'][kind]
+      key, step = 'conv3x3', pp['train_grads']['bfloat16']['launches'][kind]
+    out = dict(ncsnpp_train_step_launches=step,
+               ncsnpp_train_launches=run(pp['train']),
+               highres_train_launches=run(pp['highres_train']))
+    if kind != 'data_grad':
+      out.update(
+          ncsnpp_forward_launches=per[key], highres_forward_launches=hr[key],
+          ncsnpp_pc_evaluation_launches=pp['sample']['per_evaluation'][key],
+          ncsnpp_pc_request_launches=pp['sample']['launches'][key])
+      total = pp_kernels[f'{key}_total']
+      out.update({f'ncsnpp_new_sites_{k}': total[k] for k in (
+          'ms', 'plain_ms', 'library_ms', 'bound_ms')})
+    else:
+      total = pp_kernels['highres_data_grad_total']
+      out.update({f'highres_big_sites_{k}': total[k] for k in (
+          'ms', 'plain_ms', 'library_ms', 'bound_ms')})
+    return out
+
   def nc_keys(use):
     """A kernel's launches in ``vp/nc_ddpmpp``'s DDPM training (batch
     64, bf16): a step's and over the run."""
@@ -3948,7 +4457,8 @@ def main():
       dict(entry('conv3x3', 'conv3x3_wgmma.cu', 'winograd_pallas.py:159',
                  by_kernel['wgmma'], conv_all),
            **dps_keys(nc_conv_total, 'conv3x3'),
-           dps_eval_64x64=k1_nc64, **nc_keys('forward')),
+           dps_eval_64x64=k1_nc64, **nc_keys('forward'),
+           **ncsnpp_keys('forward')),
       entry('conv3x3_direct', 'conv3x3.cu', 'winograd_pallas.py:159',
             by_kernel['direct'], conv_all, yardstick=True),
       dict(entry('conv3x3_data_grad', 'conv3x3_wgmma.cu',
@@ -3956,13 +4466,14 @@ def main():
                  report['train']['conv3x3_by_use']['data_grad'],
                  dgrad_total),
            **dps_keys(nc_dgrad_total, 'conv3x3_data_grad'),
-           **nc_keys('data_grad')),
+           **nc_keys('data_grad'), **ncsnpp_keys('data_grad')),
       dict(entry('groupnorm_act', 'groupnorm.cu', 'groupnorm_pallas.py:118',
                  launches['groupnorm_act'], norm_all),
            **dps_keys(nc_norm_total, 'groupnorm_act'),
            reread_f32_64x64x128={k: reread_row.get(k) for k in (
                'ms', 'plain_ms', 'library_ms', 'bound_ms', 'bound_by',
-               'rel_err')}, **nc_keys(None)),
+               'rel_err')}, **nc_keys(None),
+           **ncsnpp_keys('groupnorm_act')),
       dict(entry('conv3x3_jvp', 'conv3x3_wgmma.cu', 'winograd_pallas.py:159',
                  eval_launches['conv3x3_jvp'],
                  dict(jvp_conv_total, **jvp_conv_more)),
@@ -4058,7 +4569,11 @@ def main():
       f'{prelim_batch_size}, f32), launches a forward, step and cycle and '
       f'over its runs, device ms at its stride-1 levels and in its '
       f'profiled steps, bounds; nc_train_* keys: K1, K1 data gradient and '
-      f'K2 launches a vp/nc_ddpmpp DDPM train step and over its run')
+      f'K2 launches a vp/nc_ddpmpp DDPM train step and over its run; '
+      f'ncsnpp_* and highres_* keys: K1, K1 data gradient and K2 on the '
+      f'NCSN++ paths ({NCSNPP_CONFIG}, {HIGHRES_CONFIG}), launches a '
+      f'forward, train step and PC evaluation and over their runs, device '
+      f'ms of the site shapes the flagship rows do not time')
   if failures:
     for failure in failures:
       print(f'FAILED: {failure}', file=sys.stderr)

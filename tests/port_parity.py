@@ -70,10 +70,11 @@ def randomized_params(params, seed=0):
   return redraw(params)
 
 
-def jax_tiny_model(config, seed=0):
-  """(jitted flax DDPM ``apply(params, x, labels)``, randomised params as
-  nested numpy dicts).  The init is only shape-traced: every leaf is
-  redrawn anyway, and tracing is seconds faster than running it."""
+def jax_tiny_model(config, seed=0, compiler_options=None):
+  """(jitted flax ``apply(params, x, labels)`` of the config's model,
+  randomised params as nested numpy dicts).  The init is only
+  shape-traced: every leaf is redrawn anyway, and tracing is seconds
+  faster than running it."""
   import jax
   import jax.numpy as jnp
   from b_pinn_kalman_filter_tpu import models as mutils
@@ -83,9 +84,80 @@ def jax_tiny_model(config, seed=0):
       {'params': jax.random.PRNGKey(seed), 'dropout': jax.random.PRNGKey(0)},
       jnp.zeros((1, size, size, ch)), jnp.zeros((1,)), train=False))
   apply = jax.jit(lambda p, x, labels: model.apply(
-      {'params': p}, x, labels, train=False))
+      {'params': p}, x, labels, train=False),
+      compiler_options=compiler_options)
   return apply, randomized_params(shapes['params'], seed)
 
+
+# NCSN++ at tests/tiny_configs.py's size: 16x16x1, nf 8, ch_mult (1, 2),
+# one res block, attention at 8x8, in f32.  The variants are those of
+# tests/test_torch_port_ncsnpp.py: 've' the published
+# ve/cifar10_ncsnpp_continuous axis set (Fourier, FIR, BigGAN,
+# progressive_input 'residual'), 'vp' vp/cifar10_ncsnpp_continuous's
+# (positional, no FIR, no pyramid), 'skip_sum' and 'skip_cat' the 256^2
+# configs' output_skip + input_skip, and 'ddpm' the DDPM resblocks.
+TINY_NCSNPP = {
+    ('data', 'image_size'): 16,
+    ('data', 'num_channels'): 1,
+    ('training', 'batch_size'): 4,
+    ('eval', 'batch_size'): 4,
+    ('model', 'nf'): 8,
+    ('model', 'ch_mult'): (1, 2),
+    ('model', 'num_res_blocks'): 1,
+    ('model', 'attn_resolutions'): (8,),
+    ('model', 'num_scales'): 20,
+    ('optim', 'warmup'): 2,
+    ('tpu', 'compute_dtype'): 'float32',
+}
+NCSNPP_VARIANTS = {
+    've': {},
+    'vp': {('model', 'embedding_type'): 'positional',
+           ('model', 'fir'): False,
+           ('model', 'progressive_input'): 'none',
+           ('model', 'scale_by_sigma'): False,
+           ('data', 'centered'): True},
+    'skip_sum': {('model', 'progressive'): 'output_skip',
+                 ('model', 'progressive_input'): 'input_skip',
+                 ('model', 'progressive_combine'): 'sum'},
+    'skip_cat': {('model', 'progressive'): 'output_skip',
+                 ('model', 'progressive_input'): 'input_skip',
+                 ('model', 'progressive_combine'): 'cat'},
+}
+# The residual output pyramid, which no published config takes.
+NCSNPP_VARIANTS['residual'] = {('model', 'progressive'): 'residual'}
+NCSNPP_VARIANTS['ddpm'] = {**NCSNPP_VARIANTS['vp'],
+                           ('model', 'resblock_type'): 'ddpm',
+                           ('model', 'skip_rescale'): False}
+
+
+def tiny_ncsnpp_configs(variant='ve'):
+  """``ve/cifar10_ncsnpp_continuous`` of each package, cut to
+  ``TINY_NCSNPP`` and set to ``variant``."""
+  from b_pinn_kalman_filter_tpu import configs as jax_configs
+  from b_pinn_kalman_filter_tpu_torch import configs as torch_configs
+  out = []
+  for mod in (jax_configs, torch_configs):
+    config = mod.get_config('ve/cifar10_ncsnpp_continuous')
+    for (block, key), value in {**TINY_NCSNPP,
+                                **NCSNPP_VARIANTS[variant]}.items():
+      setattr(getattr(config, block), key, value)
+    out.append(config)
+  return tuple(out)
+
+
+def ncsnpp_inputs(config, seed=0, batch=2):
+  """(x in [0, 1], time labels) as numpy float32: noise levels between
+  sigma_min and sigma_max for Fourier features, timesteps in [0, 999)
+  for positional ones."""
+  rng = np.random.default_rng(seed)
+  size, ch = config.data.image_size, config.data.num_channels
+  x = rng.uniform(0.05, 0.95, (batch, size, size, ch)).astype(np.float32)
+  if config.model.embedding_type == 'fourier':
+    labels = np.exp(rng.uniform(np.log(config.model.sigma_min),
+                                np.log(config.model.sigma_max), batch))
+  else:
+    labels = rng.uniform(0, 999, batch)
+  return x, labels.astype(np.float32)
 
 # The PINN/UKF size of tests/test_ukf.py:_kf_config: 16x16 fields, two
 # pyramid levels, 4x4 patches (64 filters of dimension 16).

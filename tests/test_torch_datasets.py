@@ -62,6 +62,30 @@ def test_get_dataset_equals_jax_on_the_synthetic_stand_in(tmp_path,
   _assert_same(_batches(port_eval, 2), _batches(ref_eval, 2))
 
 
+
+@pytest.mark.parametrize('dataset,category', [
+    ('SVHN', None), ('CELEBA', None), ('LSUN', 'bedroom'),
+    ('LSUN', 'church_outdoor'), ('FFHQ', None), ('CelebAHQ', None)])
+def test_image_stand_ins_equal_jax(dataset, category):
+  """The NCSN++ configs' datasets: both packages give the same synthetic
+  stand-in (LSUN's seed moved by the CRC-32 of its category), train and
+  eval."""
+  jax_config, torch_config = port_parity.tiny_configs()
+  for config in (jax_config, torch_config):
+    config.training.batch_size = 2
+    config.data.dataset = dataset
+    if category is not None:
+      config.data.category = category
+  port_train, port_eval = datasets.get_dataset(torch_config)
+  ref_train, ref_eval = jax_data.get_dataset(jax_config)
+  got = _batches(port_train, 2)
+  _assert_same(got, _batches(ref_train, 2))
+  _assert_same(_batches(port_eval, 1), _batches(ref_eval, 1))
+  if category == 'church_outdoor':
+    torch_config.data.category = 'bedroom'
+    other = _batches(datasets.get_dataset(torch_config)[0], 2)
+    assert not np.array_equal(other[0][0], got[0][0])
+
 def test_cifar10_reader_equals_jax(tmp_path, monkeypatch):
   """The ``cifar-10-batches-py`` pickles (a tiny fake set) read the same."""
   base = tmp_path / 'cifar-10-batches-py'

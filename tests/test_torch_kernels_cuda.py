@@ -916,3 +916,112 @@ def test_flow_kernels_refuse_what_they_do_not_take(card):
   g64 = torch.zeros((1, 4, 4), dtype=torch.float64, device='cuda')
   with pytest.raises(TypeError):
     k4.ns_step_fused(g64, g64, g64, g64, 0.0025, 1 / 200)
+
+
+# NCSN++: K1's one new site shape at ve/cifar10_ncsnpp_continuous
+# (16x16x128->128) and the sites of ve/church_ncsnpp_continuous's 32^2 to
+# 256^2 levels, batch 8 (its batch 64 cut to 8); K2 at 256x256x128 takes
+# the re-read plan (JAX's fits_fused_groupnorm refuses that shape on the
+# TPU).
+NCSNPP_CONV_SITES = [(8, 16, 16, 128, 128), (8, 32, 32, 512, 256),
+                     (8, 64, 64, 512, 256), (8, 128, 128, 128, 128),
+                     (8, 128, 128, 256, 256), (8, 256, 256, 128, 128),
+                     (8, 256, 256, 256, 128)]
+NCSNPP_NORM_SITES = [(8, 32, 32, 512), (8, 64, 64, 512), (8, 128, 128, 384),
+                     (8, 256, 256, 128), (8, 256, 256, 256)]
+
+
+@pytest.mark.parametrize('dtype', DTYPES)
+@pytest.mark.parametrize('shape', NCSNPP_CONV_SITES)
+def test_conv3x3_ncsnpp_sites_forward_and_backward(card, shape, dtype):
+  """K1, its data gradient (K1 on the flipped kernel) and the weight and
+  bias gradients at NCSN++'s sites against autograd through the plain
+  version."""
+  x, w, b = _conv_inputs(card, shape, dtype)
+  B, H, W, cin, cout = shape
+  dy = torch.randn((B, H, W, cout), generator=card, device='cuda').to(dtype)
+  got_args = [t.detach().requires_grad_() for t in (x, w, b)]
+  y = k1.conv3x3(*got_args)
+  got = torch.autograd.grad(y, got_args, dy)
+  want_args = [t.detach().requires_grad_() for t in (x, w, b)]
+  want_y = k1.conv3x3_plain(*want_args)
+  want = torch.autograd.grad(want_y, want_args, dy)
+  assert _rel(y.detach(), want_y.detach()) <= TOL[dtype]
+  for g, w_ in zip(got, want):
+    assert _rel(g, w_) <= TOL[dtype]
+
+
+@pytest.mark.parametrize('dtype', DTYPES)
+@pytest.mark.parametrize('shape', NCSNPP_NORM_SITES)
+def test_groupnorm_act_ncsnpp_sites_forward_and_backward(card, shape,
+                                                         dtype):
+  """K2 and its recomputed backward at NCSN++'s sites against autograd
+  through the plain version; the 256x256 images take the re-read plan."""
+  H, W, C = shape[1:]
+  if H == 256:
+    assert not k2.groupnorm_plan(H, W, C, 32, torch.tensor(
+        [], dtype=dtype).element_size())['on_chip']
+  x = (torch.randn(shape, generator=card, device='cuda') * 2 + 3).to(dtype)
+  scale = 1 + 0.1 * torch.randn((C,), generator=card, device='cuda')
+  bias = 0.1 * torch.randn((C,), generator=card, device='cuda')
+  dy = torch.randn(shape, generator=card, device='cuda').to(dtype)
+  outs = []
+  for fn in (k2.groupnorm_act, k2.groupnorm_act_plain):
+    args = [t.detach().requires_grad_() for t in (x, scale, bias)]
+    y = fn(*args, 32, 'silu')
+    outs.append([y.detach()] + list(torch.autograd.grad(y, args, dy)))
+  for got, want in zip(*outs):
+    assert _rel(got, want) <= TOL[dtype]
+
+
+def _ncsnpp(kernels, dtype):
+  """ve/cifar10_ncsnpp_continuous cut to nf 64, ch_mult (1, 2), 1 res
+  block, attention at 8x8, 16x16x3, every parameter randomised."""
+  from b_pinn_kalman_filter_tpu_torch import configs
+  from b_pinn_kalman_filter_tpu_torch.models import registry
+  config = configs.get_config('ve/cifar10_ncsnpp_continuous')
+  config.model.nf, config.model.ch_mult = 64, (1, 2)
+  config.model.num_res_blocks, config.model.attn_resolutions = 1, (8,)
+  config.data.image_size = 16
+  config.tpu.compute_dtype = {torch.float32: 'float32',
+                              torch.bfloat16: 'bfloat16'}[dtype]
+  model = registry.create_model(config, device='cuda', kernels=kernels)
+  g = torch.Generator().manual_seed(1)
+  with torch.no_grad():
+    for p in model.parameters():
+      p.copy_(torch.randn(p.shape, generator=g).cuda() / (
+          p[..., 0].numel() ** 0.5 if p.ndim >= 2 else 10.0))
+  return config, model
+
+
+@pytest.mark.parametrize('dtype', DTYPES)
+def test_ncsnpp_forward_and_gradients_kernel_path_match_plain_path(card,
+                                                                   dtype):
+  """A cut NCSN++ (10 BigGAN resblocks: 20 K1 and 20 K2 sites) at batch
+  4: the scores and the parameters' gradients of their squared sum,
+  kernel path against plain path, with one K1 forward, one K1 data
+  gradient and one K2 launch a site."""
+  results = {}
+  for kernels in (True, False):
+    config, model = _ncsnpp(kernels, dtype)
+    g = torch.Generator(device='cuda').manual_seed(2)
+    x = torch.rand((4, 16, 16, 3), generator=g, device='cuda')
+    sigmas = torch.tensor([0.02, 0.5, 5.0, 40.0], device='cuda')
+    k1.conv3x3.launches_by_use.update(forward=0, data_grad=0, jvp=0)
+    k2.groupnorm_act.launches = 0
+    params = dict(model.named_parameters())
+    y = model(x, sigmas, train=False)
+    grads = torch.autograd.grad(y.square().sum(), list(params.values()),
+                                allow_unused=True, materialize_grads=True)
+    counts = dict(k1.conv3x3.launches_by_use,
+                  groupnorm_act=k2.groupnorm_act.launches)
+    results[kernels] = (y.detach(), grads, counts)
+  (y, grads, counts), (y_plain, grads_plain, plain_counts) = (
+      results[True], results[False])
+  assert counts == dict(forward=20, data_grad=20, jvp=0, groupnorm_act=20)
+  assert plain_counts == dict(forward=0, data_grad=0, jvp=0, groupnorm_act=0)
+  assert torch.isfinite(y).all() and _rel(y, y_plain) <= TOL[dtype]
+  top = max(float(g.abs().max()) for g in grads_plain)
+  worst = max(float((a.float() - b.float()).abs().max()) / top
+              for a, b in zip(grads, grads_plain))
+  assert worst <= TOL[dtype]

@@ -35,6 +35,10 @@ if not torch.cuda.is_available():
                    'vp/cifar10_ddpmpp_continuous'), batch_size=1),
                lambda: run_lib.train(configs.get_config(
                    'vp/cifar10_ddpmpp_continuous'), 'workdir-never-made'),
+               lambda: run_lib.train(configs.get_config(
+                   've/cifar10_ncsnpp_continuous'), 'workdir-never-made'),
+               lambda: run_lib.sample(configs.get_config(
+                   've/church_ncsnpp_continuous'), batch_size=1),
                lambda: ukf_lib.run(configs.get_config('pinn/pinn_pde'),
                                    'workdir-never-made', n_steps=1),
                lambda: pinn_lib.train_prelim(configs.get_config(
@@ -88,6 +92,19 @@ def test_pinn_config_has_the_jax_keys_and_values():
 
 def test_lfn_config_has_the_jax_keys_and_values():
   _check_config_keys('pinn/pinn_pde_lfn')
+
+
+@pytest.mark.parametrize('name', [
+    've/cifar10_ncsnpp', 've/cifar10_ncsnpp_continuous',
+    've/cifar10_ncsnpp_deep_continuous', 'vp/cifar10_ncsnpp',
+    'vp/cifar10_ncsnpp_continuous', 'vp/cifar10_ncsnpp_deep_continuous',
+    'subvp/cifar10_ncsnpp_continuous', 'subvp/cifar10_ncsnpp_deep_continuous',
+    've/celeba_ncsnpp', 've/celebahq_ncsnpp_continuous',
+    've/celebahq_256_ncsnpp_continuous', 've/ffhq_ncsnpp_continuous',
+    've/ffhq_256_ncsnpp_continuous', 've/church_ncsnpp_continuous',
+    've/bedroom_ncsnpp_continuous'])
+def test_ncsnpp_configs_have_the_jax_keys_and_values(name):
+  _check_config_keys(name)
 
 
 @pytest.mark.parametrize('name', [
