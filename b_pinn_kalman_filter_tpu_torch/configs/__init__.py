@@ -4,13 +4,10 @@ Usage:
     from b_pinn_kalman_filter_tpu_torch import configs
     cfg = configs.get_config("vp/cifar10_ddpmpp_continuous")
 
-The configs of the ported paths: the flagship, ``pinn/pinn_pde`` (the
-FlowNet-PINN), ``pinn/pinn_pde_lfn`` (the LiteFlowNet-PINN),
-``vp/nc_ddpmpp`` (trained by the discrete DDPM loss) with its three
-``inverse/`` configs, and the fifteen NCSN++ configs: ``{ve,vp}/
-cifar10_ncsnpp``, ``{ve,vp,subvp}/cifar10_ncsnpp{,_deep}_continuous``,
-``ve/celeba_ncsnpp`` and ``ve/{celebahq,celebahq_256,ffhq,ffhq_256,
-church,bedroom}_ncsnpp_continuous``.
+Every config of the JAX package's tree but ``tpu_defaults.py`` (its TPU
+defaults): the DDPM, DDPM++, NCSN++, NCSN and NCSNv2 score models under
+``vp/``, ``subvp/`` and ``ve/``, the PINNs under ``pinn/`` and the
+inverse problems under ``inverse/``.
 """
 
 import importlib

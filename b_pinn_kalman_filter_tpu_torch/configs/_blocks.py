@@ -1,5 +1,5 @@
-"""Shared config blocks (copy of the JAX package's ``configs/_blocks.py``;
-the blocks of the ported models: DDPM++ and NCSN++)."""
+"""Shared config blocks (copy of the JAX package's ``configs/_blocks.py``:
+DDPM++, NCSN and its optimizer, the discrete DDPM blocks, NCSN++)."""
 
 
 def ddpmpp_model(model):
@@ -30,6 +30,32 @@ def ddpmpp_model(model):
   return model
 
 
+def ncsn_model(model):
+  """NCSNv1 ('ncsn') model block shared by the ve/ncsn/* anneal-schedule
+  configs (as in reference ve/ncsn/cifar10.py)."""
+  model.name = 'ncsn'
+  model.scale_by_sigma = False
+  model.normalization = 'InstanceNorm++'
+  model.nonlinearity = 'elu'
+  model.nf = 128
+  model.interpolation = 'bilinear'
+  return model
+
+
+def ncsn_optim(optim):
+  """Optimizer block shared by the ve/ncsn/* configs (lr 1e-3, no warmup or
+  clipping; as in reference ve/ncsn/cifar10.py)."""
+  optim.weight_decay = 0
+  optim.optimizer = 'Adam'
+  optim.lr = 1e-3
+  optim.beta1 = 0.9
+  optim.amsgrad = False
+  optim.eps = 1e-8
+  optim.warmup = 0
+  optim.grad_clip = -1.
+  return optim
+
+
 def ncsnpp_highres_model(model):
   """High-resolution NCSN++ block: 7-level pyramid with progressive
   input/output skips (as in the reference's
@@ -56,6 +82,40 @@ def ncsnpp_highres_model(model):
   model.init_scale = 0.
   model.fourier_scale = 16
   model.conv_size = 3
+  return model
+
+
+def ddpm_highres_model(model):
+  """Discrete DDPM block for 256^2 LSUN-family data: 6-level pyramid
+  (as in reference vp/ddpm/bedroom.py)."""
+  model.name = 'ddpm'
+  model.scale_by_sigma = False
+  model.num_scales = 1000
+  model.ema_rate = 0.9999
+  model.normalization = 'GroupNorm'
+  model.nonlinearity = 'swish'
+  model.nf = 128
+  model.ch_mult = (1, 1, 2, 2, 4, 4)
+  model.num_res_blocks = 2
+  model.attn_resolutions = (16,)
+  model.resamp_with_conv = True
+  model.conditional = True
+  return model
+
+
+def ddpm_cifar_model(model):
+  """Discrete DDPM block for CIFAR-10 (as in reference vp/ddpm/cifar10.py)."""
+  model.name = 'ddpm'
+  model.scale_by_sigma = False
+  model.ema_rate = 0.9999
+  model.normalization = 'GroupNorm'
+  model.nonlinearity = 'swish'
+  model.nf = 128
+  model.ch_mult = (1, 2, 2, 2)
+  model.num_res_blocks = 2
+  model.attn_resolutions = (16,)
+  model.resamp_with_conv = True
+  model.conditional = True
   return model
 
 

@@ -7,10 +7,14 @@ LiteFlowNet's ``Features_0``/``Features_1``, each level's ``Matching_*``,
 ``Subpixel_*`` and ``Regularization_*``, and its grouped deconvolutions'
 ``weight`` (4, 4, 1, C); NCSN++'s FIR ``Conv2d_0`` ``weight`` HWIO and its
 ``GaussianFourierProjection_0`` ``W``, a leaf of the params, the Adam
-moments and the EMA as in JAX), so each flax leaf at path ``a/b/c`` is the
-parameter ``a.b.c`` of the torch module, copied as it is.  Every function here
-raises ``ValueError`` on a leaf that names no parameter, on a parameter
-that no leaf sets, and on a shape that differs.
+moments and the EMA as in JAX; the NCSN models' ``NCSNConv_k.Conv_0``
+``kernel`` (and ``bias`` where the conv has one), InstanceNorm++'s and the
+variance norm's ``alpha``, ``gamma``, ``beta`` (C,), the conditional
+norms' ``Embed_0.embedding`` (num_classes, k C) and the conditional
+residual block's 1x1 ``Conv_0``), so each flax leaf at path ``a/b/c`` is
+the parameter ``a.b.c`` of the torch module, copied as it is.  Every
+function here raises ``ValueError`` on a leaf that names no parameter, on
+a parameter that no leaf sets, and on a shape that differs.
 """
 
 from __future__ import annotations

@@ -39,6 +39,10 @@ class DDPM(nn.Module):
     num_resolutions = len(ch_mult)
     all_res = [config.data.image_size // (2 ** i)
                for i in range(num_resolutions)]
+    if 'tpu' in config and config.tpu.get('remat', False):
+      raise NotImplementedError('tpu.remat (recomputing each resblock in '
+                                'the backward) is not ported: ROADMAP.md '
+                                'A.17')
     dtype = (get_dtype(config.tpu.compute_dtype) if 'tpu' in config
              else torch.float32)
     self.dtype = dtype

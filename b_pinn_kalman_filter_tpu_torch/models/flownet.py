@@ -14,7 +14,6 @@ package leaves them to XLA.  ``multiscale_data_mse`` and
 
 from __future__ import annotations
 
-import math
 from typing import List, Sequence, Tuple, Union
 
 import torch
@@ -22,6 +21,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from b_pinn_kalman_filter_tpu_torch.models import layers
+from b_pinn_kalman_filter_tpu_torch.models.layers import lecun_normal
 from b_pinn_kalman_filter_tpu_torch.models.layers_ncsn import ResidualBlock
 from b_pinn_kalman_filter_tpu_torch.ops.conv3x3 import conv_nhwc_plain
 from b_pinn_kalman_filter_tpu_torch.ops.correlation import (
@@ -34,14 +34,6 @@ Tensor = torch.Tensor
 
 def _lrelu(x: Tensor) -> Tensor:
   return F.leaky_relu(x, 0.1)
-
-
-def lecun_normal(shape, generator):
-  """flax's default kernel init: truncated normal (+-2 std) with variance
-  1/fan_in, fan_in the product of all but the last dimension."""
-  std = math.sqrt(1.0 / math.prod(shape[:-1])) / .87962566103423978
-  return nn.init.trunc_normal_(torch.empty(tuple(shape)), 0.0, std,
-                               -2 * std, 2 * std, generator=generator)
 
 
 def _nchw(x: Tensor) -> Tensor:

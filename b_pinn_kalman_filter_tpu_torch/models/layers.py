@@ -75,6 +75,14 @@ def default_init(scale: float = 1.0) -> Init:
   return init
 
 
+def lecun_normal(shape, generator):
+  """flax's default kernel init: truncated normal (+-2 std) with variance
+  1/fan_in, fan_in the product of all but the last dimension."""
+  std = math.sqrt(1.0 / math.prod(shape[:-1])) / .87962566103423978
+  return nn.init.trunc_normal_(torch.empty(tuple(shape)), 0.0, std,
+                               -2 * std, 2 * std, generator=generator)
+
+
 def zeros_init(shape, generator):
   return torch.zeros(tuple(shape))
 
@@ -123,14 +131,18 @@ class Dense(nn.Module):
 
 
 class Conv(nn.Module):
-  """flax ``nn.Conv`` parameters: ``kernel`` (kh, kw, in, out), ``bias``."""
+  """flax ``nn.Conv`` parameters: ``kernel`` (kh, kw, in, out), and
+  ``bias`` unless ``bias`` is False."""
 
   def __init__(self, in_ch: int, out_ch: int, size: int,
-               init_scale: float = 1.0):
+               init_scale: float = 1.0, bias: bool = True):
     super().__init__()
     _param(self, 'kernel', (size, size, in_ch, out_ch),
            default_init(init_scale))
-    _param(self, 'bias', (out_ch,), zeros_init)
+    if bias:
+      _param(self, 'bias', (out_ch,), zeros_init)
+    else:
+      self.bias = None
 
 
 class GroupNorm(nn.Module):

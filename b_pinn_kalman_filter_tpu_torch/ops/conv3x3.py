@@ -133,19 +133,19 @@ def wgmma_plan(B: int, H: int, W: int, cin: int, cout: int) -> Dict:
 
 def conv_nhwc_plain(x: torch.Tensor, kernel: torch.Tensor,
                     bias: Optional[torch.Tensor] = None, stride: int = 1,
-                    padding: int = 0) -> torch.Tensor:
+                    padding: int = 0, dilation: int = 1) -> torch.Tensor:
   """NHWC/HWIO conv by ``F.conv2d`` on an NCHW view, in f32 (f64 for f64
   inputs) from inputs cast to ``x.dtype``; bias likewise; output in
   ``x.dtype``."""
   dtype = x.dtype
   compute = torch.promote_types(dtype, torch.float32)
   w = kernel.to(dtype).to(compute).permute(3, 2, 0, 1)     # HWIO -> OIHW
-  if compute == torch.float64:
-    # The CPU's f64 convolution refuses a strided weight in its double
-    # backward ("grad_weight must be contiguous").
+  if compute == torch.float64 or x.device.type == 'cpu':
+    # The CPU's slow convolution (f64; f32 at batch 1) refuses a strided
+    # weight in its backward ("grad_weight must be contiguous").
     w = w.contiguous()
   out = F.conv2d(x.to(compute).permute(0, 3, 1, 2), w, stride=stride,
-                 padding=padding).permute(0, 2, 3, 1)
+                 padding=padding, dilation=dilation).permute(0, 2, 3, 1)
   if bias is not None:
     out = out + bias.to(compute)
   return out.to(dtype).contiguous()

@@ -6,7 +6,7 @@
                           [--pinn-steps Q] [--bpinn-steps R]
                           [--fixed-steps F] [--lfn-pinn-steps Q2]
                           [--lfn-bpinn-steps R2] [--nc-train-steps T2]
-                          [--ncsnpp-train-steps T3]
+                          [--ncsnpp-train-steps T3] [--ncsn-train-steps T4]
                           [--seed S] [--out DIR]
 
 Run from the root of a checkout; it needs one CUDA card, ``nvcc`` and
@@ -21,8 +21,9 @@ Run from the root of a checkout; it needs one CUDA card, ``nvcc`` and
    U-Net (``vp/cifar10_ddpmpp_continuous``: nf 128, ch_mult (1,2,2,2), 4
    res blocks, 32x32, batch 8), then hold each kernel against its plain
    version on the card at every distinct shape, in f32 (TF32 off for convs
-   and matmuls) and in bf16, and time kernel, plain version and the one
-   PyTorch library call of the same function (cuDNN ``F.conv2d``;
+   and matmuls) and in bf16, and in bf16 (the kernel table's dtype) time
+   kernel, plain version and the one PyTorch library call of the same
+   function (cuDNN ``F.conv2d``;
    ``F.group_norm`` + ``F.silu``): their device time from
    ``torch.profiler`` (a trace is kept only if every kernel launch in it
    has its device record), and the kernel's time per call back to back
@@ -210,8 +211,9 @@ Run from the root of a checkout; it needs one CUDA card, ``nvcc`` and
    ch_mult (1,2,2,2), 4 BigGAN resblocks a level with FIR [1,3,3,1]
    resampling, attention at 16^2, the residual input pyramid, Fourier
    features, ``scale_by_sigma``; 32x32x3, every parameter randomised):
-   (a) K1 and K2 against their plain versions in bf16 at batch 8, timed as
-   in phase 3 without yardsticks, at every site shape of it and of
+   (a) K1 and K2 against their plain versions in bf16 at batch 8 (checked,
+   not timed: their times stand from the slice that added them), at
+   every site shape of it and of
    ``ve/church_ncsnpp_continuous`` (256^2, ch_mult (1,1,2,2,2,2,2), 2
    resblocks a level, output_skip and input_skip pyramids) that the
    flagship rows do not time, and at the church config's 128^2 and 256^2
@@ -231,18 +233,46 @@ Run from the root of a checkout; it needs one CUDA card, ``nvcc`` and
    (d) the church config at batch 8 (cut from 64): one forward kernel path
    against plain path in bf16 (98 K1, 98 K2) and ``run_lib.train`` for
    steps 0..1 on the LSUN stand-in;
-16. print the kernel table as one JSON line (every kernel of the paths and
+16. NCSN and NCSNv2 (no kernel site: their convs are cuDNN's, as XLA's
+   in JAX; their norms plain ops), and the DDPM high-res U-Net: (a)
+   ``ve/ncsnv2/cifar10`` at full width (``ncsnv2_64``, nf 128, 32x32x3,
+   f32, every parameter randomised): the forward and one SMLD loss on the
+   card against the CPU at batch 4 (the f32 forward within 1e-4 of max
+   |CPU|, the f32 loss within 1e-4; its gradients in f64 on both devices,
+   every leaf within 1e-4 of its own max, the f32 gradients reported
+   against the f64 ones, the card's beside the CPU's); ``run_lib.train``
+   for steps 0..``--ncsn-train-steps`` (default 4; no snapshot sampling)
+   at batch 128, one steady step profiled; one PC request by annealed
+   Langevin dynamics (predictor 'none', 5 corrector steps a level, snr
+   0.176) at batch 8 with N cut from 232 to 20: 100 evaluations counted
+   by a hook, the sampler's NFE N (5 + 1) as JAX counts it; no K1 or K2
+   launch anywhere; (b) ``ve/ncsn/cifar10`` (``num_classes`` set to the
+   10 noise levels, which its config leaves unset in both packages): card
+   against CPU as in (a), a forward and ``run_lib.train`` steps 0..1 at
+   batch 128; (c) ``ve/ncsnv2/bedroom`` (``ncsnv2_128``, 128x128x3): a
+   forward and ``run_lib.train`` step 0 at batch 16 (cut from 128), peak
+   memory; (d) ``vp/ddpm/church`` (the DDPM U-Net at 256^2, ch_mult
+   (1,1,2,2,4,4), 512 channels at 16^2 and 8^2, bf16, batch 8, cut from
+   64): its sites a forward (69 K1: 32 resblocks and 5 upsampling convs;
+   64 K2), K1 and K2 against their plain versions at every site shape
+   no earlier phase times (its 768- and 1024-channel concatenations),
+   timed in bf16 beside cuDNN / ``F.group_norm`` + ``F.silu`` and the
+   bound, and forward and backward in f32 and bf16; one forward kernel
+   path against plain path; ``run_lib.train`` steps 0..1 through the
+   discrete DDPM loss with its launches;
+17. print the kernel table as one JSON line (every kernel of the paths and
    every yardstick beside it; K3's and K3 backward's rows also carry their
    phase-2 and B-PINN launches, device ms and bounds a step, and their
    LiteFlowNet numbers (``lfn_*``); K1's, K1 data gradient's and K2's
    their DPS guided evaluation's and request's, their ``vp/nc_ddpmpp``
-   train step's (``nc_train_*``) and their NCSN++ launches and new sites'
-   times (``ncsnpp_*``, ``highres_*``); K1 JVP's and K2 JVP's launches
+   train step's (``nc_train_*``), their NCSN++ launches and new sites'
+   times (``ncsnpp_*``, ``highres_*``) and those of phase 16's DDPM
+   high-res U-Net (``ddpm_highres_*``); K1 JVP's and K2 JVP's launches
    over the evaluate run and an evaluation),
    then the ``{"ok": true, ...}`` line.  With ``--out DIR`` the per-shape
    details go to ``DIR/chip_smoke.json``.
 
-Error limits (relative to max |reference|), in phases 3 to 5, 7 and 9 to 15:
+Error limits (relative to max |reference|), in phases 3 to 5, 7 and 9 to 16:
 f32 1e-4 (K3 at third order 1e-5); bf16 3e-2, the bound
 tests/test_winograd.py holds bf16 Winograd to.
 
@@ -252,6 +282,7 @@ it exits 2 and prints no result.
 
 import argparse
 import collections
+import copy
 import json
 import os
 import shutil
@@ -271,7 +302,7 @@ from torch.profiler import ProfilerActivity, profile, schedule
 from b_pinn_kalman_filter_tpu_torch import configs
 from b_pinn_kalman_filter_tpu_torch.core import likelihood, losses, sampling
 from b_pinn_kalman_filter_tpu_torch.core import sde as sde_lib
-from b_pinn_kalman_filter_tpu_torch.data.datasets import get_dataset
+from b_pinn_kalman_filter_tpu_torch.data.datasets import get_dataset, nc_data
 from b_pinn_kalman_filter_tpu_torch.data.scalers import (
     get_data_inverse_scaler, get_data_scaler)
 from b_pinn_kalman_filter_tpu_torch.data.ns_rollout import ns_rollout
@@ -526,15 +557,16 @@ def rel_err(got, want):
 
 @torch.no_grad()
 def randomize_(model, seed):
-  """Every parameter redrawn: kernels ~ N(0, 1/fan_in), GroupNorm scales ~
-  1 + N(0, 0.1), biases ~ N(0, 0.1).  (The init_scale=0 convs would make a
-  fresh net output ~0 and hide a wrong kernel.)"""
+  """Every parameter redrawn: kernels ~ N(0, 1/fan_in), GroupNorm scales
+  and the NCSN norms' ``alpha`` and ``gamma`` ~ 1 + N(0, 0.1), biases ~
+  N(0, 0.1).  (The init_scale=0 convs would make a fresh net output ~0 and
+  hide a wrong kernel.)"""
   g = torch.Generator().manual_seed(seed)
   for name, p in model.named_parameters():
     v = torch.randn(p.shape, generator=g)
     if p.ndim >= 2:
       v /= p[..., 0].numel() ** 0.5
-    elif name.endswith('scale'):
+    elif name.endswith(('scale', 'alpha', 'gamma')):
       v = 1.0 + 0.1 * v
     else:
       v = 0.1 * v
@@ -611,10 +643,17 @@ def site_shapes(model, config, seed, batch=BATCH):
   return convs, norms
 
 
-def check_conv(shape, dtype, seed, batch=BATCH, yardstick=True):
+def untimed(prev=None):
+  """A row's times where it is checked and not timed: NaN."""
+  keys = ('ms', 'call_ms', 'plain_ms', 'library_ms') + (
+      ('prev_ms',) if prev is not None else ())
+  return dict.fromkeys(keys, float('nan'))
+
+
+def check_conv(shape, dtype, seed, batch=BATCH, yardstick=True, timed=True):
   """K1 at the site (H, W, Cin, Cout) at ``batch`` against its plain
-  version, timed beside cuDNN (and, with ``yardstick``, the first port's
-  direct kernel where the main path takes the wgmma one)."""
+  version, with ``timed`` timed beside cuDNN (and, with ``yardstick``, the
+  first port's direct kernel where the main path takes the wgmma one)."""
   H, W, cin, cout = shape
   g = torch.Generator(device='cuda').manual_seed(seed)
   x = torch.randn((batch, H, W, cin), generator=g, device='cuda').to(dtype)
@@ -639,9 +678,10 @@ def check_conv(shape, dtype, seed, batch=BATCH, yardstick=True):
     # path now takes the wgmma kernel.
     prev = None if which == 'direct' or not yardstick else (
         lambda: k1._conv3x3_direct(x, w, b))
-    row = dict(kernel=which, **timings(
+    row = dict(kernel=which, **(timings(
         lambda: k1.conv3x3(x, w, b), lambda: k1.conv3x3_plain(x, w, b),
-        lambda: F.conv2d(x_lib, w_lib, b_lib, padding=1), prev))
+        lambda: F.conv2d(x_lib, w_lib, b_lib, padding=1), prev)
+        if timed else untimed(prev)))
     if prev is not None:
       row['prev_abs_err'], row['prev_rel_err'] = rel_err(prev(), want)
   if which == 'wgmma':
@@ -654,11 +694,11 @@ def check_conv(shape, dtype, seed, batch=BATCH, yardstick=True):
   return row
 
 
-def check_norm(shape, dtype, seed, batch=BATCH, yardstick=True):
+def check_norm(shape, dtype, seed, batch=BATCH, yardstick=True, timed=True):
   """K2 at the site (H, W, C, G) at ``batch`` against its plain version,
-  timed beside ``F.group_norm`` + ``F.silu`` (and, with ``yardstick``,
-  the first port's kernel); ``on_chip`` is the plan's (False: the kernel
-  reads x again for its later passes)."""
+  with ``timed`` timed beside ``F.group_norm`` + ``F.silu`` (and, with
+  ``yardstick``, the first port's kernel); ``on_chip`` is the plan's
+  (False: the kernel reads x again for its later passes)."""
   H, W, C, G = shape
   g = torch.Generator(device='cuda').manual_seed(seed)
   x = (torch.randn((batch, H, W, C), generator=g, device='cuda') * 2 + 0.5
@@ -678,7 +718,8 @@ def check_norm(shape, dtype, seed, batch=BATCH, yardstick=True):
     row = timings(
         lambda: k2.groupnorm_act(x, scale, bias, G, 'silu'),
         lambda: k2.groupnorm_act_plain(x, scale, bias, G, 'silu'),
-        lambda: F.silu(F.group_norm(x_lib, G, s_lib, b_lib, 1e-6)), prev)
+        lambda: F.silu(F.group_norm(x_lib, G, s_lib, b_lib, 1e-6)),
+        prev) if timed else untimed(prev)
     if prev is not None:
       row['prev_abs_err'], row['prev_rel_err'] = rel_err(prev(), want)
   row['on_chip'] = k2.groupnorm_plan(H, W, C, G, x.element_size())['on_chip']
@@ -690,13 +731,17 @@ def check_norm(shape, dtype, seed, batch=BATCH, yardstick=True):
 
 
 def kernel_phase(name, sites, check, seed,
-                 dtypes=(torch.float32, torch.bfloat16), **kw):
+                 dtypes=(torch.float32, torch.bfloat16), timed=None, **kw):
   """Every site shape in each of ``dtypes`` (f32 and bf16; ``kw`` to
-  ``check``: the batch, whether to time the yardstick); returns (rows,
-  per-forward totals in bf16, more per-forward numbers, failures)."""
+  ``check``: the batch, whether to time the yardstick), timed in the
+  dtypes of ``timed`` (default all; the others checked only); returns
+  (rows, per-forward totals in bf16, more per-forward numbers,
+  failures)."""
   rows, failures = [], []
   for i, (shape, count) in enumerate(sorted(sites.items())):
     for dtype in dtypes:
+      if timed is not None:
+        kw['timed'] = dtype in timed
       row = check(shape, dtype, seed + i, **kw)
       row.update(shape=list(shape), dtype=str(dtype).split('.')[-1],
                  per_forward=count, tol=TOL[dtype])
@@ -2678,7 +2723,7 @@ NC_TRAIN_CONFIG = 'vp/nc_ddpmpp'
 
 
 def nc_train_phase(train_steps, per_forward, seed, name=NC_TRAIN_CONFIG,
-                   batch_size=None):
+                   batch_size=None, edit=None):
   """``run_lib.train`` at ``NC_TRAIN_CONFIG`` (the NC U-Net: nf 128,
   ch_mult (1,2,2,2), 4 res blocks, 64x64x1, batch 64, bf16) through the
   discrete DDPM loss, for steps 0..``train_steps``, on the NC stand-in
@@ -2689,8 +2734,11 @@ def nc_train_phase(train_steps, per_forward, seed, name=NC_TRAIN_CONFIG,
   config's N = 2000 ancestral steps), the eval at the first step only.
   Checks: finite losses, parameters moved, launches.  Returns (report,
   failures).  ``name`` and ``batch_size`` run another config the same
-  way (NCSN++: the continuous DSM loss)."""
+  way (NCSN++: the continuous DSM loss; NCSNv2: the SMLD loss), after
+  ``edit(config)``."""
   config = configs.get_config(name)
+  if edit is not None:
+    edit(config)
   t = config.training
   t.batch_size = batch_size or t.batch_size
   t.n_iters = train_steps
@@ -2769,6 +2817,21 @@ def inverse_counts():
   return {'conv3x3': dict(k1.conv3x3.launches_by_use),
           'conv3x3_by_kernel': dict(k1.conv3x3.launches_by_kernel),
           'groupnorm_act': k2.groupnorm_act.launches}
+
+
+def write_nc_field(data_dir):
+  """The NC stand-in (``nc_data``: a 512x456x256 field made on the host)
+  made once and written as the ``.nc.npz`` the NC branch reads under
+  ``data_dir``, which becomes ``$BPKF_DATA_DIR``; returns the seconds
+  taken."""
+  start = time.time()
+  config = configs.get_config(INVERSE_CONFIG)
+  name = (f'bsose_i122_{config.data.date_range}_{config.data.category}'
+          '.nc.npz')
+  np.savez(os.path.join(data_dir, name),
+           **{config.data.key: nc_data(config)})
+  os.environ['BPKF_DATA_DIR'] = data_dir
+  return time.time() - start
 
 
 def inverse_problem(config, seed):
@@ -3168,7 +3231,7 @@ def fir_device_ms(calls, seed):
 
 def ncsnpp_kernel_phase(flagship_sites, seed):
   """(a) K1 and K2 against their plain versions at NCSN++'s sites: in bf16
-  at batch 8, timed, at every site shape of ``NCSNPP_CONFIG`` and of
+  at batch 8, untimed, at every site shape of ``NCSNPP_CONFIG`` and of
   ``HIGHRES_CONFIG`` that the flagship rows do not time; at the 128^2 and
   256^2 sites of ``HIGHRES_CONFIG`` also in f32, and forward and backward
   (K1's data gradient by ``dgrad_phase``, timed in bf16; K2's recomputed
@@ -3191,12 +3254,13 @@ def ncsnpp_kernel_phase(flagship_sites, seed):
     new_norm.update({s: n for s, n in norm.items() if s not in flag_norm})
   log(f'  sites a forward: {report}; not timed by the flagship rows: '
       f'{len(new_conv)} K1 and {len(new_norm)} K2 shapes')
-  conv_rows, conv_total, _, f1 = kernel_phase(
+  # Checked, not timed: their times stand from the slice that added them.
+  conv_rows, _, _, f1 = kernel_phase(
       'conv3x3', new_conv, check_conv, seed, dtypes=(torch.bfloat16,),
-      yardstick=False)
-  norm_rows, norm_total, _, f2 = kernel_phase(
+      timed=(), yardstick=False)
+  norm_rows, _, _, f2 = kernel_phase(
       'groupnorm_act', new_norm, check_norm, seed + 100,
-      dtypes=(torch.bfloat16,), yardstick=False)
+      dtypes=(torch.bfloat16,), timed=(), yardstick=False)
   failures += f1 + f2
   hr_conv, hr_norm = sites['highres']
   big_conv = {s: n for s, n in hr_conv.items() if s[0] >= HIGHRES_BIG}
@@ -3225,7 +3289,6 @@ def ncsnpp_kernel_phase(flagship_sites, seed):
   if (256, 256, 128, 32) not in big_norm:
     failures.append('the 256x256x128 K2 site is missing')
   report.update(conv3x3=conv_rows, groupnorm_act=norm_rows,
-                conv3x3_total=conv_total, groupnorm_act_total=norm_total,
                 highres_grads=grads, highres_data_grad=dgrad_rows,
                 highres_data_grad_total=dgrad_total,
                 new_conv_shapes=len(new_conv), new_norm_shapes=len(new_norm))
@@ -3380,6 +3443,376 @@ def ncsnpp_phase(args, flagship_sites):
       1, hr_per_forward, args.seed, HIGHRES_CONFIG, HIGHRES_BATCH)
   failures += f
   torch.cuda.empty_cache()
+  return report, failures
+
+
+NCSNV2_CONFIG = 've/ncsnv2/cifar10'
+NCSN_CONFIG = 've/ncsn/cifar10'
+NCSNV2_128_CONFIG = 've/ncsnv2/bedroom'
+DDPM_HIGHRES_CONFIG = 'vp/ddpm/church'
+# Cuts: the ALD request's N 232 -> 20 (5 corrector steps a level: 100
+# evaluations); the bedroom config's batch 128 -> 16; the church config's
+# 64 -> 8; the card-against-CPU checks at batch 4 (the CPU's side).
+NCSN_SAMPLE_STEPS = 20
+NCSN_BEDROOM_BATCH = 16
+DDPM_HIGHRES_BATCH = 8
+NCSN_CPU_BATCH = 4
+# The NCSN models have no kernel site (their convs are XLA's in JAX,
+# cuDNN's here; their norms plain ops): no launch is expected of them.
+NO_KERNEL = dict(conv3x3=0, groupnorm_act=0)
+# The DDPM high-res U-Net's sites a forward: 32 resblocks of two K1 and two
+# K2 sites, and the 5 upsampling convs (the first conv, 3 channels in, and
+# the last, kernels off as in JAX, stay plain; so do the stride-2
+# downsampling convs).
+DDPM_HIGHRES_PER_FORWARD = dict(conv3x3=69, groupnorm_act=64)
+
+
+def with_num_classes(config):
+  """``config``, for ``ncsn`` with ``model.num_classes`` set to the noise
+  levels its labels index (the ``ve/ncsn`` configs leave it unset, in
+  JAX too)."""
+  if config.model.name == 'ncsn':
+    config.model.num_classes = config.model.num_scales
+  return config
+
+
+def ncsn_config(name):
+  return with_num_classes(configs.get_config(name))
+
+
+def ncsn_models(name, seed):
+  """(config, model on the CPU, the same model on the card): ``name``'s
+  NCSN model at full width, f32, every parameter randomised."""
+  config = ncsn_config(name)
+  cpu = registry.create_model(config, device='cpu', seed=seed)
+  randomize_(cpu, seed)
+  return config, cpu, copy.deepcopy(cpu).to('cuda')
+
+
+def kernel_counts():
+  return dict(conv3x3=k1.conv3x3.launches,
+              groupnorm_act=k2.groupnorm_act.launches)
+
+
+def ncsn_card_vs_cpu(name, seed, batch=NCSN_CPU_BATCH):
+  """``name``'s model with the same randomised weights, batch, labels and
+  noise on the card and on the CPU: the f32 forward within 1e-4 of max
+  |CPU| and the f32 SMLD loss within 1e-4 of itself; the loss's gradients
+  in f64 on both, every leaf within 1e-4 of its own max |CPU| (of the
+  largest leaf's, for a leaf zero but for rounding).  In f32 no device
+  holds every leaf to 1e-4 of itself: a leaf whose gradient is a sum that
+  cancels (a conv's bias ahead of an instance norm) is off by more on the
+  CPU too, so the f32 gradients are reported against the f64 ones, the
+  card's beside the CPU's.  Returns (report, failures)."""
+  config, cpu, card = ncsn_models(name, seed)
+  g = torch.Generator().manual_seed(seed)
+  size, ch = config.data.image_size, config.data.num_channels
+  sde, _ = sde_lib.get_sde(config)
+  x = torch.rand((batch, size, size, ch), generator=g)
+  labels = torch.randint(0, sde.N, (batch,), generator=g)
+  z = torch.randn(x.shape, generator=g)
+  out = {}
+  for dev, model in (('cpu', cpu), ('cuda', card)):
+    for dtype in (torch.float32, torch.float64):
+      model = model.to(dtype)
+      with torch.no_grad():
+        y = model(x.to(dev, dtype), labels.to(dev), train=False)
+      params = dict(model.named_parameters())
+      loss = losses.get_smld_loss_fn(
+          sde, model, True, reduce_mean=config.training.reduce_mean)(
+              params, x.to(dev, dtype), noise=(labels, z.to(dtype)))
+      grads = torch.autograd.grad(loss, list(params.values()))
+      out[dev, dtype] = (y.cpu(), float(loss.detach()),
+                         {n: v.cpu().double() for n, v in
+                          zip(params, grads)})
+      del params, grads, loss, y
+  f32, f64 = torch.float32, torch.float64
+  _, forward_rel = rel_err(out['cuda', f32][0], out['cpu', f32][0])
+  loss, loss_card = out['cpu', f32][1], out['cuda', f32][1]
+  loss_rel = abs(loss_card - loss) / abs(loss)
+
+  def leaf_errs(got, want, own=True):
+    top = max(float(v.abs().max()) for v in want.values())
+    errs = {}
+    for n, v in want.items():
+      scale = float(v.abs().max())
+      if not own or scale < ZERO_LEAF * top:
+        scale = top
+      errs[n] = float((got[n] - v).abs().max()) / scale
+    return errs
+
+  want64 = out['cpu', f64][2]
+  grad64 = leaf_errs(out['cuda', f64][2], want64)
+  worst = sorted(grad64, key=grad64.get, reverse=True)[:3]
+  f32_errs = {
+      'card_vs_cpu': leaf_errs(out['cuda', f32][2], out['cpu', f32][2],
+                               own=False),
+      'card_vs_f64': leaf_errs(out['cuda', f32][2], want64, own=False),
+      'cpu_vs_f64': leaf_errs(out['cpu', f32][2], want64, own=False)}
+  f32_max = {k: max(v.values()) for k, v in f32_errs.items()}
+  f32_own = {k: max(leaf_errs(out[dev, f32][2], want64).values())
+             for k, dev in (('card_vs_f64', 'cuda'), ('cpu_vs_f64', 'cpu'))}
+  report = dict(batch=batch, forward_rel=forward_rel, loss_cpu=loss,
+                loss_card=loss_card, loss_rel=loss_rel, leaves=len(grad64),
+                f64_max_leaf_rel=grad64[worst[0]],
+                f64_worst_leaves={n: grad64[n] for n in worst},
+                f32_grads_rel_to_largest_leaf=f32_max,
+                f32_grads_rel_to_own_leaf=f32_own,
+                finite=bool(torch.isfinite(out['cuda', f32][0]).all()),
+                tol=1e-4)
+  log(f'  {name} card vs CPU, batch {batch}: f32 forward rel '
+      f'{forward_rel:.2e}, f32 SMLD loss {loss_card:.6f} vs {loss:.6f} (rel '
+      f'{loss_rel:.2e}); f64 gradients, {len(grad64)} leaves, worst '
+      'against their own max ' + ', '.join(
+          f'{n} {grad64[n]:.2e}' for n in worst) + ' (limit 1e-4); f32 '
+      'gradients against the largest leaf: card vs CPU '
+      f'{f32_max["card_vs_cpu"]:.2e}, card vs f64 '
+      f'{f32_max["card_vs_f64"]:.2e}, CPU vs f64 '
+      f'{f32_max["cpu_vs_f64"]:.2e} (against their own max: card '
+      f'{f32_own["card_vs_f64"]:.2e}, CPU {f32_own["cpu_vs_f64"]:.2e})')
+  failures = []
+  if not (report['finite'] and forward_rel <= 1e-4 and loss_rel <= 1e-4
+          and grad64[worst[0]] <= 1e-4):
+    failures.append(f'{name} card vs CPU: {report}')
+  del cpu, card, out
+  torch.cuda.empty_cache()
+  return report, failures
+
+
+def ncsn_train_profile(name, seed):
+  """One steady train step of ``name`` (its batch, f32, its loss) under
+  the profiler: host and device-busy seconds, idle share, device ops.
+  Returns (report, failures)."""
+  config = ncsn_config(name)
+  t = config.training
+  model = registry.create_model(config, device='cuda', seed=seed)
+  tx = losses.get_optimizer(config)
+  state = state_lib.create_train_state(dict(model.named_parameters()), tx,
+                                       config.model.ema_rate)
+  step_fn = losses.get_step_fn(sde_lib.get_sde(config)[0], model, tx,
+                               train=True, reduce_mean=t.reduce_mean,
+                               continuous=t.continuous)
+  g = torch.Generator(device='cuda').manual_seed(seed)
+  size = config.data.image_size
+  batch = torch.rand((t.batch_size, size, size, config.data.num_channels),
+                     generator=g, device='cuda')
+  step_fn(state, batch, g)
+  out, _ = profiled(f'{name} train step (batch {t.batch_size}, f32)',
+                    lambda: step_fn(state, batch, g))
+  del state, model
+  torch.cuda.empty_cache()
+  return out, []
+
+
+def ncsn_sample_phase(seed):
+  """One PC request at ``NCSNV2_CONFIG``: predictor 'none', the annealed
+  Langevin corrector (5 steps a level, snr 0.176), batch 8, N =
+  ``NCSN_SAMPLE_STEPS`` (cut from 232; the model's sigma table cut with
+  it), f32, the seeded init: the net's evaluations counted by a hook (5
+  N), the sampler's NFE (N (5 + 1), as JAX counts it), no kernel launch,
+  the samples finite.  Returns (report, failures)."""
+  config = ncsn_config(NCSNV2_CONFIG)
+  config.model.num_scales = NCSN_SAMPLE_STEPS
+  model = registry.create_model(config, device='cuda', seed=seed)
+  calls = []
+  model.register_forward_hook(lambda *_: calls.append(1))
+  reset_counts()
+  torch.cuda.synchronize()
+  start = time.time()
+  samples, nfe = run_lib.sample(config, batch_size=BATCH, seed=seed,
+                                device='cuda', model=model)
+  torch.cuda.synchronize()
+  seconds = time.time() - start
+  launches = kernel_counts()
+  finite = bool(torch.isfinite(samples).all())
+  evals = len(calls)
+  report = dict(steps=NCSN_SAMPLE_STEPS,
+                n_steps_each=config.sampling.n_steps_each, evaluations=evals,
+                nfe=nfe, seconds=seconds, imgs_per_s=BATCH / seconds,
+                ms_per_evaluation=1e3 * seconds / max(evals, 1),
+                launches=launches, finite=finite, shape=list(samples.shape),
+                sample_range=[float(samples.min()), float(samples.max())])
+  log(f'  request: {seconds:.2f} s, {BATCH / seconds:.3f} imgs/s, '
+      f'{evals} evaluations (the sampler\'s NFE {nfe}), '
+      f'{report["ms_per_evaluation"]:.2f} ms an evaluation; launches '
+      f'{launches}; finite {finite}, range {report["sample_range"]}')
+  failures = []
+  want = NCSN_SAMPLE_STEPS * config.sampling.n_steps_each
+  if (evals != want or nfe != NCSN_SAMPLE_STEPS * (
+      config.sampling.n_steps_each + 1) or launches != NO_KERNEL
+      or not finite):
+    failures.append(f'ncsnv2 ALD request: {report} (expected {want} '
+                    'evaluations)')
+  del model
+  return report, failures
+
+
+def ncsn_forward(name, seed, batch):
+  """One f32 forward of ``name``'s seeded model at ``batch`` on the card
+  (labels at random levels): seconds (synchronised), finite, no kernel
+  launch, peak memory.  Returns (report, failures)."""
+  config = ncsn_config(name)
+  model = registry.create_model(config, device='cuda', seed=seed)
+  g = torch.Generator(device='cuda').manual_seed(seed)
+  size, ch = config.data.image_size, config.data.num_channels
+  x = torch.rand((batch, size, size, ch), generator=g, device='cuda')
+  labels = torch.randint(0, config.model.num_scales, (batch,), generator=g,
+                         device='cuda')
+  reset_counts()
+  torch.cuda.reset_peak_memory_stats()
+  with torch.no_grad():
+    model(x, labels, train=False)             # warm
+    torch.cuda.synchronize()
+    start = time.time()
+    y = model(x, labels, train=False)
+    torch.cuda.synchronize()
+  seconds = time.time() - start
+  launches = kernel_counts()
+  report = dict(batch=batch, seconds=seconds, shape=list(y.shape),
+                finite=bool(torch.isfinite(y).all()), launches=launches,
+                max_memory_allocated=torch.cuda.max_memory_allocated(),
+                params=sum(p.numel() for p in model.parameters()))
+  log(f'  {name} forward, batch {batch}, f32: {1e3 * seconds:.1f} ms, '
+      f'{report["params"]:,} parameters, finite {report["finite"]}, peak '
+      f'{report["max_memory_allocated"] / 2**30:.2f} GiB, launches '
+      f'{launches}')
+  del model, y
+  torch.cuda.empty_cache()
+  failures = []
+  if not report['finite'] or launches != NO_KERNEL or report['shape'] != [
+      batch, size, size, ch]:
+    failures.append(f'{name} forward: {report}')
+  return report, failures
+
+
+def ddpm_highres_model(dtype, kernels, seed):
+  return randomized_model(DDPM_HIGHRES_CONFIG, dtype, kernels, seed)
+
+
+def ddpm_highres_phase(seed, timed_conv, timed_norm):
+  """(d) the DDPM high-res U-Net of ``DDPM_HIGHRES_CONFIG`` (256^2,
+  ch_mult (1,1,2,2,4,4), 2 res blocks, attention at 16^2, bf16, every
+  parameter randomised): its K1 and K2 sites a forward (69 and 64
+  expected); K1 and K2 against their plain versions at every site shape
+  not in ``timed_conv`` / ``timed_norm`` (the flagship's and NCSN++'s),
+  timed in bf16 at batch 8 beside cuDNN / ``F.group_norm`` + ``F.silu``
+  and the bound, and forward and backward in f32 and bf16 (untimed); one
+  forward kernel path against plain path with its launches; and
+  ``run_lib.train`` for steps 0..1 (and the eval) at batch 8 through the
+  discrete DDPM loss.  Returns (report, failures)."""
+  report, failures = {}, []
+  config, model = ddpm_highres_model(torch.bfloat16, True, seed)
+  conv, norm = site_shapes(model, config, seed, batch=1)
+  del model
+  torch.cuda.empty_cache()
+  per_forward = dict(conv3x3=sum(conv.values()),
+                     groupnorm_act=sum(norm.values()))
+  new_conv = {s: n for s, n in conv.items() if s not in timed_conv}
+  new_norm = {s: n for s, n in norm.items() if s not in timed_norm}
+  report.update(per_forward=per_forward,
+                conv_sites={str(k): v for k, v in sorted(conv.items())},
+                norm_sites={str(k): v for k, v in sorted(norm.items())},
+                new_conv_shapes=len(new_conv), new_norm_shapes=len(new_norm))
+  log(f'  sites a forward: {per_forward} (expected '
+      f'{DDPM_HIGHRES_PER_FORWARD}); {len(conv)} K1 and {len(norm)} K2 '
+      f'shapes, {len(new_conv)} and {len(new_norm)} not timed before')
+  if per_forward != DDPM_HIGHRES_PER_FORWARD:
+    failures.append(f'{DDPM_HIGHRES_CONFIG} sites a forward: {per_forward}')
+  conv_rows, conv_total, _, f1 = kernel_phase(
+      'conv3x3', new_conv, check_conv, seed + 300, dtypes=(torch.bfloat16,),
+      batch=DDPM_HIGHRES_BATCH, yardstick=False)
+  norm_rows, norm_total, _, f2 = kernel_phase(
+      'groupnorm_act', new_norm, check_norm, seed + 400,
+      dtypes=(torch.bfloat16,), batch=DDPM_HIGHRES_BATCH, yardstick=False)
+  failures += f1 + f2
+  grads = []
+  for kind, sites in (('conv3x3', new_conv), ('groupnorm_act', new_norm)):
+    for i, shape in enumerate(sorted(sites)):
+      for dtype in (torch.float32, torch.bfloat16):
+        errs = check_site_grads(kind, shape, dtype, seed + 500 + i,
+                                DDPM_HIGHRES_BATCH)
+        name = str(dtype).split('.')[-1]
+        grads.append(dict(kind=kind, shape=list(shape), dtype=name,
+                          rel_errs=errs, tol=TOL[dtype]))
+        if not max(errs.values()) <= TOL[dtype]:
+          failures.append(f'{kind} {shape} {name}: {errs}')
+  worst = {}
+  for row in grads:
+    key = (row['kind'], row['dtype'])
+    worst[key] = max(worst.get(key, 0.0), max(row['rel_errs'].values()))
+  log('  forward and backward vs plain at those shapes, batch '
+      f'{DDPM_HIGHRES_BATCH}, worst: ' + ', '.join(
+          f'{k} {d} {v:.2e}' for (k, d), v in sorted(worst.items())))
+  report.update(conv3x3=conv_rows, groupnorm_act=norm_rows,
+                conv3x3_total=conv_total, groupnorm_act_total=norm_total,
+                grads=grads)
+  report['forward'], f = forward_phase(
+      seed, ddpm_highres_model, dtypes=(torch.bfloat16,),
+      batch=DDPM_HIGHRES_BATCH, timed=False)
+  failures += f
+  got = report['forward']['bfloat16']['launches']
+  if got != per_forward:
+    failures.append(f'{DDPM_HIGHRES_CONFIG} forward launches {got}, '
+                    f'expected {per_forward}')
+  # Steps 0 and 1: step 0 takes the warmup's lr 0.
+  report['train'], f = nc_train_phase(1, per_forward, seed,
+                                      DDPM_HIGHRES_CONFIG,
+                                      DDPM_HIGHRES_BATCH)
+  failures += f
+  torch.cuda.empty_cache()
+  return report, failures
+
+
+def ncsn_phase(args, timed_conv, timed_norm):
+  """The NCSN group (phase 16): (a) ``NCSNV2_CONFIG`` at full width (the
+  slice's main path): card against CPU, ``run_lib.train`` for steps
+  0..``--ncsn-train-steps`` at batch 128 through the SMLD loss, one step
+  profiled, one ALD request; (b) ``NCSN_CONFIG``: card against CPU, a
+  forward and two train steps at batch 128; (c) ``NCSNV2_128_CONFIG`` at
+  128^2: a forward and one train step at batch 16; (d) the DDPM high-res
+  U-Net (``ddpm_highres_phase``).  Returns (report, failures)."""
+  report, failures = {}, []
+  log(f'[NCSN (a): {NCSNV2_CONFIG} (ncsnv2_64, nf 128, 32x32x3, f32): card '
+      f'vs CPU (batch {NCSN_CPU_BATCH}), run_lib.train steps '
+      f'0..{args.ncsn_train_steps} at batch 128 (no snapshot sampling), one '
+      f'step profiled, one ALD request (batch {BATCH}, N = '
+      f'{NCSN_SAMPLE_STEPS}, cut from 232)]')
+  report['card_vs_cpu'], f = ncsn_card_vs_cpu(NCSNV2_CONFIG, args.seed)
+  failures += f
+  report['train'], f = nc_train_phase(args.ncsn_train_steps, NO_KERNEL,
+                                      args.seed, NCSNV2_CONFIG)
+  failures += f
+  report['train_profile'], f = ncsn_train_profile(NCSNV2_CONFIG, args.seed)
+  failures += f
+  report['sample'], f = ncsn_sample_phase(args.seed)
+  failures += f
+  log(f'[NCSN (b): {NCSN_CONFIG} (ncsn, num_classes = num_scales = 10): '
+      f'card vs CPU (batch {NCSN_CPU_BATCH}), a forward and run_lib.train '
+      'steps 0..1 at batch 128]')
+  report['ncsn_card_vs_cpu'], f = ncsn_card_vs_cpu(NCSN_CONFIG, args.seed)
+  failures += f
+  report['ncsn_forward'], f = ncsn_forward(NCSN_CONFIG, args.seed, 128)
+  failures += f
+  report['ncsn_train'], f = nc_train_phase(1, NO_KERNEL, args.seed,
+                                           NCSN_CONFIG,
+                                           edit=with_num_classes)
+  failures += f
+  log(f'[NCSN (c): {NCSNV2_128_CONFIG} (ncsnv2_128, 128x128x3): a forward '
+      f'and run_lib.train step 0 at batch {NCSN_BEDROOM_BATCH} (cut from '
+      '128)]')
+  report['bedroom_forward'], f = ncsn_forward(NCSNV2_128_CONFIG, args.seed,
+                                              NCSN_BEDROOM_BATCH)
+  failures += f
+  report['bedroom_train'], f = nc_train_phase(
+      0, NO_KERNEL, args.seed, NCSNV2_128_CONFIG, NCSN_BEDROOM_BATCH)
+  failures += f
+  log(f'[NCSN (d): {DDPM_HIGHRES_CONFIG} (DDPM, 256^2, ch_mult '
+      f'(1,1,2,2,4,4)), batch {DDPM_HIGHRES_BATCH} (cut from 64), bf16: K1 '
+      'and K2 vs plain at its new site shapes, a forward kernel path vs '
+      'plain path, run_lib.train steps 0..1]')
+  report['ddpm_highres'], f = ddpm_highres_phase(args.seed, timed_conv,
+                                                 timed_norm)
+  failures += f
   return report, failures
 
 
@@ -3570,9 +4003,7 @@ def jvp_timings(dtype, kernel, plain, library, prev=None):
   f32 the forward-mode rows are checked, not timed (NaN)."""
   if dtype == torch.bfloat16:
     return timings(kernel, plain, library, prev)
-  keys = ('ms', 'call_ms', 'plain_ms', 'library_ms') + (
-      ('prev_ms',) if prev is not None else ())
-  return dict.fromkeys(keys, float('nan'))
+  return untimed(prev)
 
 
 def check_conv_jvp(shape, dtype, seed, batch=BATCH):
@@ -3904,8 +4335,8 @@ def eval_cli_phase(train_dir, workdir):
   """``python -m b_pinn_kalman_filter_tpu_torch --mode sample --ckptdir
   <the train phase's checkpoint>`` (batch 8, N = 100) and ``--mode eval``
   (the loss alone, the config's default, of ``checkpoint_1`` at
-  ``eval.batch_size`` 128) as subprocesses.  Returns (report,
-  failures)."""
+  ``eval.batch_size`` 128) as two subprocesses at once; ``seconds`` is
+  the pair's.  Returns (report, failures)."""
   root = os.path.dirname(os.path.abspath(__file__))
   config_file = os.path.join(root, 'b_pinn_kalman_filter_tpu_torch',
                              'configs', *CONFIG.split('/')) + '.py'
@@ -3918,13 +4349,25 @@ def eval_cli_phase(train_dir, workdir):
                '--config.eval.begin_ckpt=1', '--config.eval.end_ckpt=1',
                f'--config.eval.batch_size={EVAL_BATCH}']}
   report, failures = {}, []
-  for mode, args in runs.items():
-    start = time.time()
-    proc = subprocess.run(
-        [sys.executable, '-m', 'b_pinn_kalman_filter_tpu_torch', '--config',
-         config_file, '--mode', mode, *args], cwd=root, capture_output=True,
-        text=True, timeout=600)
-    seconds = time.time() - start
+  # The two run at once (each mostly its process's start-up); this
+  # process waits for both.
+  start = time.time()
+  procs = {mode: subprocess.Popen(
+      [sys.executable, '-m', 'b_pinn_kalman_filter_tpu_torch', '--config',
+       config_file, '--mode', mode, *args], cwd=root,
+      stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+           for mode, args in runs.items()}
+  try:
+    outs = {mode: proc.communicate(timeout=600)
+            for mode, proc in procs.items()}
+  finally:
+    for proc in procs.values():
+      if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+  seconds = time.time() - start
+  for mode, proc in procs.items():
+    stderr = outs[mode][1]
     if mode == 'sample':
       png = os.path.join(workdir, 'sample.png')
       ok = (os.path.exists(png)
@@ -3942,7 +4385,7 @@ def eval_cli_phase(train_dir, workdir):
         f'{detail}')
     if proc.returncode != 0 or not ok:
       failures.append(f'CLI {mode}: {report[mode]}; stderr '
-                      f'{proc.stderr[-2000:]}')
+                      f'{stderr[-2000:]}')
   return report, failures
 
 
@@ -4028,6 +4471,9 @@ def main():
   parser.add_argument('--ncsnpp-train-steps', type=int, default=4,
                       help=f'{NCSNPP_CONFIG} train steps after step 0 '
                       '(default 4)')
+  parser.add_argument('--ncsn-train-steps', type=int, default=4,
+                      help=f'{NCSNV2_CONFIG} train steps after step 0 '
+                      '(default 4)')
   parser.add_argument('--seed', type=int, default=0)
   parser.add_argument('--out', default=None,
                       help='directory for chip_smoke.json (per-shape details)')
@@ -4079,10 +4525,13 @@ def main():
   per_forward = {'conv3x3': sum(conv_sites.values()),
                  'groupnorm_act': sum(norm_sites.values())}
   log(f'  sites per forward: {per_forward}')
+  # f32 checked, not timed: the kernel table's times are bf16's.
   conv_rows, conv_total, conv_more, f1 = kernel_phase(
-      'conv3x3', conv_sites, check_conv, args.seed)
+      'conv3x3', conv_sites, check_conv, args.seed,
+      timed=(torch.bfloat16,))
   norm_rows, norm_total, norm_more, f2 = kernel_phase(
-      'groupnorm_act', norm_sites, check_norm, args.seed)
+      'groupnorm_act', norm_sites, check_norm, args.seed,
+      timed=(torch.bfloat16,))
   failures += f1 + f2
   report['kernels'] = {'conv3x3': conv_rows, 'groupnorm_act': norm_rows}
   report['per_forward_bf16'] = {
@@ -4272,6 +4721,13 @@ def main():
                    groupnorm_act=nc_per_forward['groupnorm_act'])
   if per_eval != want_eval:
     failures.append(f'guided eval launches {per_eval}, expected {want_eval}')
+  # The NC training, the inverse runs and the CLI's subprocess read one
+  # NC field, made once.
+  nc_dir = tempfile.TemporaryDirectory()
+  data_dir = os.environ.get('BPKF_DATA_DIR')
+  report['nc_field_s'] = write_nc_field(nc_dir.name)
+  log(f'  the NC stand-in made and written once: {report["nc_field_s"]:.1f} '
+      's')
   log(f'[train: run_lib.train, {NC_TRAIN_CONFIG} through the DDPM loss, '
       f'batch {configs.get_config(NC_TRAIN_CONFIG).training.batch_size}, '
       f'bf16, steps '
@@ -4291,6 +4747,11 @@ def main():
   with tempfile.TemporaryDirectory() as tmp:
     report['inverse_cli'], f23 = inverse_cli_phase(os.path.join(tmp, 'cli'))
   failures += f23
+  if data_dir is None:
+    os.environ.pop('BPKF_DATA_DIR', None)
+  else:
+    os.environ['BPKF_DATA_DIR'] = data_dir
+  nc_dir.cleanup()
 
   log(f'[eval: K1 and K2 forward mode (K1 on the tangent, the K2 JVP '
       f'kernel) vs plain at the main-path shapes, batch {BATCH}, f32 and '
@@ -4328,6 +4789,13 @@ def main():
 
   report['ncsnpp'], f29 = ncsnpp_phase(args, (conv_sites, norm_sites))
   failures += f29
+  pp_rows = report['ncsnpp']['kernels']
+  report['ncsn'], f30 = ncsn_phase(
+      args, set(conv_sites) | {tuple(r['shape'])
+                               for r in pp_rows['conv3x3']},
+      set(norm_sites) | {tuple(r['shape'])
+                         for r in pp_rows['groupnorm_act']})
+  failures += f30
   eval_launches = report['eval']['launches']
   dps_launches = report['inverse']['dps_dpm']['launches']
 
@@ -4414,10 +4882,9 @@ def main():
     'data_grad' for K1, 'groupnorm_act' for K2): launches a forward, a
     train step, a PC evaluation and over the train and PC runs at
     ``NCSNPP_CONFIG`` (batch 128 and 8, bf16), a forward at
-    ``HIGHRES_CONFIG`` and over its two train steps (batch 8); device ms
-    of the site shapes the flagship rows do not time (bf16, batch 8, one
-    forward's count of each) and, for K1's data gradient, of the 256^2
-    config's 128^2 and 256^2 sites (batch 8)."""
+    ``HIGHRES_CONFIG`` and over its two train steps (batch 8); for K1's
+    data gradient, the device ms of the 256^2 config's 128^2 and 256^2
+    sites (batch 8)."""
     per = pp_kernels['ncsnpp_per_forward']
     hr = pp_kernels['highres_per_forward']
     if kind == 'groupnorm_act':
@@ -4435,13 +4902,32 @@ def main():
           ncsnpp_forward_launches=per[key], highres_forward_launches=hr[key],
           ncsnpp_pc_evaluation_launches=pp['sample']['per_evaluation'][key],
           ncsnpp_pc_request_launches=pp['sample']['launches'][key])
-      total = pp_kernels[f'{key}_total']
-      out.update({f'ncsnpp_new_sites_{k}': total[k] for k in (
-          'ms', 'plain_ms', 'library_ms', 'bound_ms')})
     else:
       total = pp_kernels['highres_data_grad_total']
       out.update({f'highres_big_sites_{k}': total[k] for k in (
           'ms', 'plain_ms', 'library_ms', 'bound_ms')})
+    return out
+
+  hr = report['ncsn']['ddpm_highres']
+
+  def ddpm_highres_keys(kind):
+    """A kernel's numbers on ``DDPM_HIGHRES_CONFIG`` (batch 8, bf16;
+    ``kind`` 'forward' and 'data_grad' for K1, 'groupnorm_act' for K2):
+    launches a forward, a train step and over its two steps and eval, and
+    (K1, K2) the device ms of the site shapes no earlier row times, one
+    forward's count of each."""
+    if kind == 'groupnorm_act':
+      run, step = hr['train']['launches']['groupnorm_act'], 'groupnorm_act'
+    else:
+      run = hr['train']['launches']['conv3x3'][kind]
+      step = 'conv3x3' if kind == 'forward' else 'conv3x3_data_grad'
+    out = dict(ddpm_highres_train_step_launches=hr['train']['per_step'][step],
+               ddpm_highres_train_launches=run)
+    if kind != 'data_grad':
+      key = 'conv3x3' if kind == 'forward' else 'groupnorm_act'
+      out['ddpm_highres_forward_launches'] = hr['per_forward'][key]
+      out.update({f'ddpm_highres_new_sites_{k}': hr[f'{key}_total'][k]
+                  for k in ('ms', 'plain_ms', 'library_ms', 'bound_ms')})
     return out
 
   def nc_keys(use):
@@ -4458,7 +4944,7 @@ def main():
                  by_kernel['wgmma'], conv_all),
            **dps_keys(nc_conv_total, 'conv3x3'),
            dps_eval_64x64=k1_nc64, **nc_keys('forward'),
-           **ncsnpp_keys('forward')),
+           **ncsnpp_keys('forward'), **ddpm_highres_keys('forward')),
       entry('conv3x3_direct', 'conv3x3.cu', 'winograd_pallas.py:159',
             by_kernel['direct'], conv_all, yardstick=True),
       dict(entry('conv3x3_data_grad', 'conv3x3_wgmma.cu',
@@ -4466,14 +4952,16 @@ def main():
                  report['train']['conv3x3_by_use']['data_grad'],
                  dgrad_total),
            **dps_keys(nc_dgrad_total, 'conv3x3_data_grad'),
-           **nc_keys('data_grad'), **ncsnpp_keys('data_grad')),
+           **nc_keys('data_grad'), **ncsnpp_keys('data_grad'),
+           **ddpm_highres_keys('data_grad')),
       dict(entry('groupnorm_act', 'groupnorm.cu', 'groupnorm_pallas.py:118',
                  launches['groupnorm_act'], norm_all),
            **dps_keys(nc_norm_total, 'groupnorm_act'),
            reread_f32_64x64x128={k: reread_row.get(k) for k in (
                'ms', 'plain_ms', 'library_ms', 'bound_ms', 'bound_by',
                'rel_err')}, **nc_keys(None),
-           **ncsnpp_keys('groupnorm_act')),
+           **ncsnpp_keys('groupnorm_act'),
+           **ddpm_highres_keys('groupnorm_act')),
       dict(entry('conv3x3_jvp', 'conv3x3_wgmma.cu', 'winograd_pallas.py:159',
                  eval_launches['conv3x3_jvp'],
                  dict(jvp_conv_total, **jvp_conv_more)),
@@ -4572,8 +5060,12 @@ def main():
       f'K2 launches a vp/nc_ddpmpp DDPM train step and over its run; '
       f'ncsnpp_* and highres_* keys: K1, K1 data gradient and K2 on the '
       f'NCSN++ paths ({NCSNPP_CONFIG}, {HIGHRES_CONFIG}), launches a '
-      f'forward, train step and PC evaluation and over their runs, device '
-      f'ms of the site shapes the flagship rows do not time')
+      f'forward, train step and PC evaluation and over their runs, K1 data '
+      f'gradient device ms at the 256^2 config\'s 128^2 and 256^2 sites; '
+      f'ddpm_highres_* keys: K1, K1 data gradient and K2 on '
+      f'{DDPM_HIGHRES_CONFIG} (batch {DDPM_HIGHRES_BATCH}, bf16), launches '
+      f'a forward and train step and over its run, device ms of the site '
+      f'shapes no earlier row times; the NCSN models launch none')
   if failures:
     for failure in failures:
       print(f'FAILED: {failure}', file=sys.stderr)

@@ -45,9 +45,11 @@ def tiny_configs():
   return tuple(out)
 
 
-def randomized_params(params, seed=0):
+def randomized_params(params, seed=0, scales=('scale',)):
   """Every leaf of a flax params tree redrawn as numpy float32: kernels
-  ~ N(0, 1/fan_in), biases ~ N(0, 0.1), GroupNorm scales ~ 1 + N(0, 0.1)."""
+  ~ N(0, 1/fan_in), biases ~ N(0, 0.1), scales (the leaves named in
+  ``scales``: GroupNorm's; the NCSN norms' ``NCSN_SCALES``) ~ 1 + N(0,
+  0.1)."""
   rng = np.random.default_rng(seed)
 
   def redraw(tree):
@@ -57,11 +59,11 @@ def randomized_params(params, seed=0):
         out[key] = redraw(value)
         continue
       shape = tuple(value.shape)
-      if len(shape) >= 2:
+      if key in scales:
+        leaf = 1.0 + 0.1 * rng.standard_normal(shape)
+      elif len(shape) >= 2:
         fan_in = int(np.prod(shape[:-1]))
         leaf = rng.standard_normal(shape) / np.sqrt(fan_in)
-      elif key == 'scale':
-        leaf = 1.0 + 0.1 * rng.standard_normal(shape)
       else:
         leaf = 0.1 * rng.standard_normal(shape)
       out[key] = leaf.astype(np.float32)
@@ -70,11 +72,12 @@ def randomized_params(params, seed=0):
   return redraw(params)
 
 
-def jax_tiny_model(config, seed=0, compiler_options=None):
+def jax_tiny_model(config, seed=0, compiler_options=None, scales=('scale',)):
   """(jitted flax ``apply(params, x, labels)`` of the config's model,
-  randomised params as nested numpy dicts).  The init is only
-  shape-traced: every leaf is redrawn anyway, and tracing is seconds
-  faster than running it."""
+  randomised params as nested numpy dicts, ``scales`` as
+  :func:`randomized_params` takes them).  The init is only shape-traced:
+  every leaf is redrawn anyway, and tracing is seconds faster than
+  running it."""
   import jax
   import jax.numpy as jnp
   from b_pinn_kalman_filter_tpu import models as mutils
@@ -86,7 +89,7 @@ def jax_tiny_model(config, seed=0, compiler_options=None):
   apply = jax.jit(lambda p, x, labels: model.apply(
       {'params': p}, x, labels, train=False),
       compiler_options=compiler_options)
-  return apply, randomized_params(shapes['params'], seed)
+  return apply, randomized_params(shapes['params'], seed, scales)
 
 
 # NCSN++ at tests/tiny_configs.py's size: 16x16x1, nf 8, ch_mult (1, 2),
@@ -158,6 +161,43 @@ def ncsnpp_inputs(config, seed=0, batch=2):
   else:
     labels = rng.uniform(0, 999, batch)
   return x, labels.astype(np.float32)
+
+# NCSN and NCSNv2 at nf 8 and 8 noise levels, f32: each norm's scales
+# (InstanceNorm++'s alpha and gamma, the conditional norms' embedding
+# rows) drawn near 1.  ``ncsn`` takes ``num_classes = num_scales``, which
+# its configs leave unset (ROADMAP.md, reference-side findings).
+NCSN_SCALES = ('scale', 'alpha', 'gamma', 'embedding')
+NCSN_CONFIG = {'ncsn': 've/ncsn/cifar10', 'ncsnv2_64': 've/ncsnv2/cifar10',
+               'ncsnv2_128': 've/ncsnv2/bedroom',
+               'ncsnv2_256': 've/ncsnv2/bedroom'}
+
+
+def tiny_ncsn_configs(name, size):
+  """``name``'s config of each package at ``size`` px, nf 8, 8 noise
+  levels."""
+  from b_pinn_kalman_filter_tpu import configs as jax_configs
+  from b_pinn_kalman_filter_tpu_torch import configs as torch_configs
+  out = []
+  for mod in (jax_configs, torch_configs):
+    config = mod.get_config(NCSN_CONFIG[name])
+    config.model.name = name
+    config.data.image_size = size
+    config.model.nf = 8
+    config.model.num_scales = 8
+    config.training.batch_size = 2
+    if name == 'ncsn':
+      config.model.num_classes = config.model.num_scales
+    out.append(config)
+  return tuple(out)
+
+
+def ncsn_inputs(config, seed=0, batch=2):
+  """(x in [0, 1], noise-level indices) as numpy float32 and int32."""
+  rng = np.random.default_rng(seed)
+  size, ch = config.data.image_size, config.data.num_channels
+  x = rng.uniform(0.05, 0.95, (batch, size, size, ch)).astype(np.float32)
+  return x, rng.integers(0, config.model.num_scales, batch).astype(np.int32)
+
 
 # The PINN/UKF size of tests/test_ukf.py:_kf_config: 16x16 fields, two
 # pyramid levels, 4x4 patches (64 filters of dimension 16).

@@ -1025,3 +1025,52 @@ def test_ncsnpp_forward_and_gradients_kernel_path_match_plain_path(card,
   worst = max(float((a.float() - b.float()).abs().max()) / top
               for a, b in zip(grads, grads_plain))
   assert worst <= TOL[dtype]
+
+
+# The DDPM high-resolution U-Net (vp/ddpm/{church,bedroom,celebahq}:
+# ch_mult (1, 1, 2, 2, 4, 4), 512 channels at 16^2 and 8^2) at its batch
+# 8 (cut from 64): K1 where its up path concatenates to 768 and 1024
+# input channels, and K2 at 512 to 1024 channels, 32 groups.
+DDPM_HIGHRES_CONV_SITES = [(8, 16, 16, 1024, 512), (8, 16, 16, 768, 512),
+                           (8, 16, 16, 512, 512), (8, 16, 16, 256, 512),
+                           (8, 8, 8, 1024, 512), (8, 8, 8, 512, 512)]
+DDPM_HIGHRES_NORM_SITES = [(8, 16, 16, 1024), (8, 16, 16, 768),
+                           (8, 16, 16, 512), (8, 8, 8, 1024), (8, 8, 8, 512)]
+
+
+@pytest.mark.parametrize('dtype', DTYPES)
+@pytest.mark.parametrize('shape', DDPM_HIGHRES_CONV_SITES)
+def test_conv3x3_ddpm_highres_sites_forward_and_backward(card, shape,
+                                                         dtype):
+  test_conv3x3_ncsnpp_sites_forward_and_backward(card, shape, dtype)
+
+
+@pytest.mark.parametrize('dtype', DTYPES)
+@pytest.mark.parametrize('shape', DDPM_HIGHRES_NORM_SITES)
+def test_groupnorm_act_ddpm_highres_sites_forward_and_backward(card, shape,
+                                                               dtype):
+  test_groupnorm_act_ncsnpp_sites_forward_and_backward(card, shape, dtype)
+
+
+@pytest.mark.parametrize('maxpool', [False, True])
+def test_ncsn_crp_pooling_backward_matches_the_cpu(card, maxpool):
+  """NCSN's chained residual pooling (5x5 stride-1 SAME pools) on the card
+  against the CPU in f64: the gradients of x and of every parameter.
+  ``F.avg_pool2d``'s backward of a permuted (channels-last) view with
+  padding is wrong on the card, so the block pools a contiguous copy."""
+  import copy
+  import torch.nn.functional as F
+  from b_pinn_kalman_filter_tpu_torch.models import layers, layers_ncsn
+  block = layers_ncsn.CRPBlock(64, 2, F.elu, maxpool=maxpool)
+  layers.init_params(block, torch.Generator().manual_seed(0))
+  g = torch.Generator().manual_seed(1)
+  x = torch.randn((4, 16, 16, 64), generator=g, dtype=torch.float64)
+  dy = torch.randn((4, 16, 16, 64), generator=g, dtype=torch.float64)
+  grads = []
+  for device in ('cpu', 'cuda'):
+    mod = copy.deepcopy(block).to(device, torch.float64)
+    leaves = [x.to(device).requires_grad_()] + list(mod.parameters())
+    y = mod(leaves[0])
+    grads.append(torch.autograd.grad(y, leaves, dy.to(device)))
+  for got, want in zip(grads[1], grads[0]):
+    assert _rel(got.cpu(), want) <= 1e-10

@@ -39,6 +39,10 @@ if not torch.cuda.is_available():
                    've/cifar10_ncsnpp_continuous'), 'workdir-never-made'),
                lambda: run_lib.sample(configs.get_config(
                    've/church_ncsnpp_continuous'), batch_size=1),
+               lambda: run_lib.train(configs.get_config(
+                   've/ncsnv2/cifar10'), 'workdir-never-made'),
+               lambda: run_lib.sample(configs.get_config(
+                   've/ncsnv2/bedroom'), batch_size=1),
                lambda: ukf_lib.run(configs.get_config('pinn/pinn_pde'),
                                    'workdir-never-made', n_steps=1),
                lambda: pinn_lib.train_prelim(configs.get_config(
