@@ -5,7 +5,8 @@ layer order and the flax child names (``Dense_0``, ``Conv3x3_0``,
 ``ResnetBlockDDPM_k``, ``AttnBlock_k``, ``Downsample_k``, ``Upsample_k``,
 ``GroupNorm_0``, ...), so the parameters carry across by name.  NHWC.
 Activations are in ``config.tpu.compute_dtype``; the final GroupNorm and
-conv run in plain f32, as in JAX.
+conv run in plain f32, as in JAX.  ``config.tpu.remat`` recomputes each
+resblock in the backward (``layers.remat_block``) under the same names.
 """
 
 from __future__ import annotations
@@ -39,10 +40,10 @@ class DDPM(nn.Module):
     num_resolutions = len(ch_mult)
     all_res = [config.data.image_size // (2 ** i)
                for i in range(num_resolutions)]
+    # tpu.remat: each resblock recomputed in the backward (layers.remat_block).
+    block_cls = layers.ResnetBlockDDPM
     if 'tpu' in config and config.tpu.get('remat', False):
-      raise NotImplementedError('tpu.remat (recomputing each resblock in '
-                                'the backward) is not ported: ROADMAP.md '
-                                'A.17')
+      block_cls = layers.remat_block(block_cls)
     dtype = (get_dtype(config.tpu.compute_dtype) if 'tpu' in config
              else torch.float32)
     self.dtype = dtype
@@ -56,7 +57,7 @@ class DDPM(nn.Module):
       return module
 
     def resblock(in_ch, out_ch):
-      return add(layers.ResnetBlockDDPM(
+      return add(block_cls(
           act, in_ch, out_ch, temb_dim=temb_dim,
           dropout=config.model.dropout, dtype=dtype, kernels=kernels))
 

@@ -22,8 +22,11 @@ from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.autograd.forward_ad as fwAD
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from b_pinn_kalman_filter_tpu_torch.ops import conv3x3 as conv_ops
 from b_pinn_kalman_filter_tpu_torch.ops import groupnorm as gn_ops
@@ -355,6 +358,68 @@ def dropout(x: Tensor, rate: float, generator: Optional[torch.Generator]
   keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
   return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
                                                          device=x.device))
+
+
+def _records(tensors: Sequence[Optional[Tensor]]) -> bool:
+  """Whether autograd records a block on these inputs and parameters:
+  grad mode on, one of them requiring grad, and no forward-mode tangent
+  on them (``forward_ad``, the likelihood's pass)."""
+  tensors = [t for t in tensors if t is not None]
+  return (torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+          and all(fwAD.unpack_dual(t).tangent is None for t in tensors))
+
+
+def remat_block(cls):
+  """``cls``, a resblock class, with its forward recomputed in the
+  backward (JAX ``remat_block``, ``config.tpu.remat``): activations are
+  not kept between the forward and the backward, at the cost of one more
+  forward of the block.  The class keeps ``cls``'s name, so the models'
+  child names and the parameter names do not change with remat.
+
+  Only where autograd records does the block run under
+  ``torch.utils.checkpoint`` (non-reentrant); under ``torch.no_grad`` and
+  under forward-mode AD it runs as it is, as ``jax.checkpoint`` changes
+  only the backward.  The recomputation runs under the tensors the
+  forward ran under (``functional_call``'s, a train state's, are swapped
+  back in) and replays the dropout mask: the explicit generator is set to
+  its state before the block, then back to where it stood, so it ends
+  where the block without remat would leave it.  (The checkpoint's own
+  RNG preservation covers only the global generators.)"""
+
+  class Remat(cls):
+
+    def forward(self, x, temb=None, train=True, generator=None):
+      if self.__dict__.get('_replay', False):
+        return super().forward(x, temb, train, generator)
+      params = dict(self.named_parameters())
+      if not _records([x, temb, *params.values()]):
+        return super().forward(x, temb, train, generator)
+      replay = generator if train and self.dropout > 0 else None
+      before = replay.get_state() if replay is not None else None
+      calls = []
+
+      def run(x, temb, *values):
+        if not calls:
+          calls.append(1)
+          return super(Remat, self).forward(x, temb, train, generator)
+        now = replay.get_state() if replay is not None else None
+        if replay is not None:
+          replay.set_state(before)
+        self._replay = True
+        try:
+          return functional_call(self, dict(zip(params, values)),
+                                 (x, temb, train, generator))
+        finally:
+          self._replay = False
+          if replay is not None:
+            replay.set_state(now)
+
+      return checkpoint(run, x, temb, *params.values(), use_reentrant=False,
+                        preserve_rng_state=False)
+
+  Remat.__name__ = cls.__name__
+  Remat.__qualname__ = cls.__qualname__
+  return Remat
 
 
 class ResnetBlockDDPM(nn.Module):

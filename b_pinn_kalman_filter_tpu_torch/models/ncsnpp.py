@@ -10,7 +10,9 @@ Every branch of the JAX model is here: BigGAN and DDPM resblocks, FIR and
 nearest resampling, the output pyramid (``progressive`` 'none',
 'output_skip', 'residual') and the input pyramid (``progressive_input``
 'none', 'input_skip', 'residual'), Fourier and positional embeddings,
-``scale_by_sigma`` and ``data.centered``.
+``scale_by_sigma`` and ``data.centered``.  ``config.tpu.remat`` recomputes
+each resblock in the backward (``layers.remat_block``) under the same
+names.
 
 Kernel sites (``kernels=True``): each resblock's two ``Conv3x3`` (K1,
 where ``ops/conv3x3.py`` ``applicable`` holds) and two ``act(GroupNorm)``
@@ -58,10 +60,11 @@ class NCSNpp(nn.Module):
     assert embedding_type in ('fourier', 'positional')
     if resblock_type not in ('ddpm', 'biggan'):
       raise ValueError(f'resblock type {resblock_type} unrecognized.')
-    if 'tpu' in config and config.tpu.get('remat', False):
-      raise NotImplementedError('tpu.remat (recomputing each resblock in '
-                                'the backward) is not ported: ROADMAP.md '
-                                'A.17')
+    # tpu.remat: each resblock recomputed in the backward (layers.remat_block).
+    remat = 'tpu' in config and config.tpu.get('remat', False)
+    maybe_remat = layers.remat_block if remat else (lambda cls: cls)
+    ddpm_block = maybe_remat(layerspp.ResnetBlockDDPMpp)
+    biggan_block = maybe_remat(layerspp.ResnetBlockBigGANpp)
     dtype = (get_dtype(config.tpu.compute_dtype) if 'tpu' in config
              else torch.float32)
     self.dtype = dtype
@@ -77,11 +80,11 @@ class NCSNpp(nn.Module):
 
     def resblock(in_ch, out_ch=None, up=False, down=False):
       if resblock_type == 'ddpm':
-        return add(layerspp.ResnetBlockDDPMpp(
+        return add(ddpm_block(
             act, in_ch, out_ch, temb_dim=temb_dim, dropout=m.dropout,
             skip_rescale=skip_rescale, init_scale=init_scale, dtype=dtype,
             kernels=kernels))
-      return add(layerspp.ResnetBlockBigGANpp(
+      return add(biggan_block(
           act, in_ch, out_ch, temb_dim=temb_dim, up=up, down=down,
           dropout=m.dropout, fir=fir, fir_kernel=fir_kernel,
           skip_rescale=skip_rescale, init_scale=init_scale, dtype=dtype,

@@ -11,8 +11,9 @@ each tree a ``{flax name: tensor}`` dict (the PINN's names carry their
 renamed, so that a reader never sees half of one.
 ``restore_bpinn_checkpoint`` starts a B-PINN state from the B-PINN
 preemption checkpoint or from a PINN checkpoint (the MOPED bootstrap).
-(The reference's ``.pth`` layout, which the JAX importers read, is
-ROADMAP.md A.7.)
+The reference's ``.pth`` checkpoints are read, not written:
+``models/torch_port.py`` converts them and
+``scripts/import_torch_checkpoint.py`` writes them in this layout.
 """
 
 from __future__ import annotations

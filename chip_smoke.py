@@ -260,19 +260,49 @@ Run from the root of a checkout; it needs one CUDA card, ``nvcc`` and
    bound, and forward and backward in f32 and bf16; one forward kernel
    path against plain path; ``run_lib.train`` steps 0..1 through the
    discrete DDPM loss with its launches;
-17. print the kernel table as one JSON line (every kernel of the paths and
+17. the reference's checkpoints, ``tpu.remat`` and NCSN++ bits/dim: (a)
+   the flagship in the reference's layout (``tests/torch_ddpm_oracle.py``
+   ``TorchDDPM`` at full width, every parameter randomised, a distinct
+   EMA shadow list, DataParallel's ``module.`` keys, step 25) written as
+   a ``.pth`` file and imported by ``python -m
+   b_pinn_kalman_filter_tpu_torch.scripts.import_torch_checkpoint`` in a
+   subprocess; the port's f32 kernel-path forward on the imported params
+   and on its EMA against the oracle's on the card (1e-4 of max |oracle|,
+   79 K1 and 76 K2 launches each); ``sample_from_checkpoint`` from the
+   imported checkpoint (batch 128, N = 20, bf16) with its launches; (b)
+   the FlowNet-PINN likewise (``tests/torch_pinn_oracle.py`` ``TorchPINN``
+   at ``pinn/pinn_pde``'s width, ``info`` 0, imported alongside (a)): its
+   cascade and pressure against the oracle's (1e-4, 5 K3 launches), then
+   ``train_bpinn`` from the imported checkpoint, its step 0 alone (the
+   MOPED bootstrap bit for bit); (c) one bf16 train step at batch 128 of
+   the flagship and of ``ve/cifar10_ncsnpp_continuous`` with
+   ``tpu.remat`` off and on under a train state's own parameters (the
+   loss, the gradients as a tree within 3e-2 of the largest leaf, peak
+   memory above the start, step seconds, K1, K1 data-gradient and K2
+   launches, the recomputed ones within the resblocks' sites), and
+   ``run_lib.train`` at ``ve/church_ncsnpp_continuous`` with remat (batch
+   8, steps 0..1), its peak memory beside phase 15's without remat; (d)
+   one drift-plus-divergence evaluation at NCSN++'s full width (batch 8,
+   randomised) kernel path against plain path in f32 and bf16 with its
+   launches, ``run_lib.evaluate`` on phase 15's snapshot (the loss and
+   bits/dim at ``eval.batch_size`` 256 on the train split, no sampling)
+   with its launches, one bpd evaluation at batch 256 profiled, 8 images'
+   f32 bpd kernel path against plain path (within 1e-3);
+18. print the kernel table as one JSON line (every kernel of the paths and
    every yardstick beside it; K3's and K3 backward's rows also carry their
    phase-2 and B-PINN launches, device ms and bounds a step, and their
    LiteFlowNet numbers (``lfn_*``); K1's, K1 data gradient's and K2's
    their DPS guided evaluation's and request's, their ``vp/nc_ddpmpp``
    train step's (``nc_train_*``), their NCSN++ launches and new sites'
    times (``ncsnpp_*``, ``highres_*``) and those of phase 16's DDPM
-   high-res U-Net (``ddpm_highres_*``); K1 JVP's and K2 JVP's launches
-   over the evaluate run and an evaluation),
+   high-res U-Net (``ddpm_highres_*``); their train step's with and
+   without ``tpu.remat`` (``remat_*``); K1 JVP's and K2 JVP's launches
+   over the evaluate run and an evaluation, and NCSN++'s
+   (``ncsnpp_bpd_*``)),
    then the ``{"ok": true, ...}`` line.  With ``--out DIR`` the per-shape
    details go to ``DIR/chip_smoke.json``.
 
-Error limits (relative to max |reference|), in phases 3 to 5, 7 and 9 to 16:
+Error limits (relative to max |reference|), in phases 3 to 5, 7 and 9 to 17:
 f32 1e-4 (K3 at third order 1e-5); bf16 3e-2, the bound
 tests/test_winograd.py holds bf16 Winograd to.
 
@@ -283,6 +313,7 @@ it exits 2 and prints no result.
 import argparse
 import collections
 import copy
+import importlib.util
 import json
 import os
 import shutil
@@ -579,12 +610,14 @@ def randomize_(model, seed):
 RANDOMIZED = {}
 
 
-def randomized_model(name, dtype, kernels, seed):
-  """(config, model): ``name``'s config in ``dtype`` and its model on the
-  card, every parameter randomised by ``randomize_`` from ``seed``."""
+def randomized_model(name, dtype, kernels, seed, remat=False):
+  """(config, model): ``name``'s config in ``dtype`` (and ``tpu.remat``)
+  and its model on the card, every parameter randomised by ``randomize_``
+  from ``seed``."""
   config = configs.get_config(name)
   config.tpu.compute_dtype = {torch.float32: 'float32',
                               torch.bfloat16: 'bfloat16'}[dtype]
+  config.tpu.remat = remat
   key = (name, seed)
   if key not in RANDOMIZED:
     model = registry.create_model(config, device='cuda', seed=seed,
@@ -2723,7 +2756,7 @@ NC_TRAIN_CONFIG = 'vp/nc_ddpmpp'
 
 
 def nc_train_phase(train_steps, per_forward, seed, name=NC_TRAIN_CONFIG,
-                   batch_size=None, edit=None):
+                   batch_size=None, edit=None, workdir=None, remat_sites=None):
   """``run_lib.train`` at ``NC_TRAIN_CONFIG`` (the NC U-Net: nf 128,
   ch_mult (1,2,2,2), 4 res blocks, 64x64x1, batch 64, bf16) through the
   discrete DDPM loss, for steps 0..``train_steps``, on the NC stand-in
@@ -2735,7 +2768,10 @@ def nc_train_phase(train_steps, per_forward, seed, name=NC_TRAIN_CONFIG,
   Checks: finite losses, parameters moved, launches.  Returns (report,
   failures).  ``name`` and ``batch_size`` run another config the same
   way (NCSN++: the continuous DSM loss; NCSNv2: the SMLD loss), after
-  ``edit(config)``."""
+  ``edit(config)``.  ``workdir`` keeps the run's directory (its final
+  snapshot ``checkpoints/checkpoint_0``); with ``remat_sites`` (the
+  resblocks' K1 and K2 sites, ``tpu.remat`` on) a train step may launch
+  K1 and K2 again at up to those sites, in its backward."""
   config = configs.get_config(name)
   if edit is not None:
     edit(config)
@@ -2746,15 +2782,18 @@ def nc_train_phase(train_steps, per_forward, seed, name=NC_TRAIN_CONFIG,
   t.log_freq = t.eval_freq = t.snapshot_freq_for_preemption = 10 ** 6
   t.snapshot_freq = 10 ** 6
   history = []
-  with tempfile.TemporaryDirectory() as workdir:
-    reset_counts()
-    torch.cuda.reset_peak_memory_stats()
-    torch.cuda.synchronize()
-    start = time.time()
-    state = run_lib.train(config, workdir, device='cuda', history=history)
-    torch.cuda.synchronize()
-    total_s = time.time() - start
-    snapshots = sorted(os.listdir(os.path.join(workdir, 'checkpoints')))
+  tmp = None if workdir else tempfile.TemporaryDirectory()
+  workdir = workdir or tmp.name
+  reset_counts()
+  torch.cuda.reset_peak_memory_stats()
+  torch.cuda.synchronize()
+  start = time.time()
+  state = run_lib.train(config, workdir, device='cuda', history=history)
+  torch.cuda.synchronize()
+  total_s = time.time() - start
+  snapshots = sorted(os.listdir(os.path.join(workdir, 'checkpoints')))
+  if tmp is not None:
+    tmp.cleanup()
   peak = torch.cuda.max_memory_allocated()
   launches = {'conv3x3': dict(k1.conv3x3.launches_by_use),
               'conv3x3_by_kernel': dict(k1.conv3x3.launches_by_kernel),
@@ -2796,10 +2835,26 @@ def nc_train_phase(train_steps, per_forward, seed, name=NC_TRAIN_CONFIG,
     failures.append(f'{name} train: a loss is not finite')
   if not moved:
     failures.append(f'{name} train: no parameter moved')
-  if (launches['conv3x3'] != expected['conv3x3']
-      or launches['groupnorm_act'] != expected['groupnorm_act']):
+  if remat_sites is None:
+    wrong = (launches['conv3x3'] != expected['conv3x3']
+             or launches['groupnorm_act'] != expected['groupnorm_act'])
+  else:
+    extra = {'forward': launches['conv3x3']['forward']
+             - expected['conv3x3']['forward'],
+             'groupnorm_act': launches['groupnorm_act']
+             - expected['groupnorm_act']}
+    report['remat_extra_launches'] = extra
+    wrong = (launches['conv3x3']['data_grad']
+             != expected['conv3x3']['data_grad']
+             or not 0 < extra['forward'] <= remat_sites['conv3x3'] * n_steps
+             or not 0 < extra['groupnorm_act']
+             <= remat_sites['groupnorm_act'] * n_steps)
+    log(f'  remat: {extra} launches more than without it over '
+        f'{n_steps} steps (the resblocks hold {remat_sites} sites)')
+  if wrong:
     failures.append(f'{name} train launches {launches}, expected '
-                    f'{expected}')
+                    f'{expected}' + (f' and up to {remat_sites} a step '
+                                     'more' if remat_sites else ''))
   return report, failures
 
 
@@ -3374,13 +3429,14 @@ def ncsnpp_sample_phase(seed, per_forward):
   return report, failures
 
 
-def ncsnpp_phase(args, flagship_sites):
+def ncsnpp_phase(args, flagship_sites, train_dir=None):
   """The NCSN++ group (phase 15): (a) K1 and K2 against plain at the new
   site shapes; (b) the full-width forward and a train step's gradients,
   kernel path against plain path, with their launches; (c)
   ``run_lib.train``, one profiled step with the FIR filters' share, one
   PC request; (d) the 256^2 config's forward, kernel path against plain
-  path, and ``run_lib.train`` for two steps.  Returns (report,
+  path, and ``run_lib.train`` for two steps.  ``train_dir`` keeps (c)'s
+  training directory, for phase 17's ``evaluate``.  Returns (report,
   failures)."""
   report, failures = {}, []
   log(f'[NCSN++ (a): K1 and K2 vs plain at the {NCSNPP_CONFIG} and '
@@ -3418,7 +3474,8 @@ def ncsnpp_phase(args, flagship_sites):
   log(f'[NCSN++ (c): run_lib.train, {NCSNPP_CONFIG}, bf16, steps '
       f'0..{args.ncsnpp_train_steps}, no snapshot sampling]')
   report['train'], f = nc_train_phase(args.ncsnpp_train_steps, per_forward,
-                                      args.seed, NCSNPP_CONFIG)
+                                      args.seed, NCSNPP_CONFIG,
+                                      workdir=train_dir)
   failures += f
   log('[NCSN++ (c): one steady train step under torch.profiler; the FIR '
       'filters\' device ms]')
@@ -4128,12 +4185,14 @@ def rademacher(shape, seed):
   return torch.randint(0, 2, shape, generator=g, device='cuda').float() * 2 - 1
 
 
-def drift_div_phase(per_forward, seed):
+def drift_div_phase(per_forward, seed, build=None, inputs=None):
   """One drift-plus-divergence evaluation of the likelihood at the
-  flagship's full width, batch 8, every parameter randomised, kernel path
-  against plain path on the same x, t and probe, in f32 (TF32 off) and
-  bf16, with the launches counted over it.  Returns (report, per-evaluation
-  launches of the bf16 kernel path, failures)."""
+  flagship's (or ``build(dtype, kernels, seed)``'s model's, its x from
+  ``inputs(config, seed)``) full width, batch 8, every parameter
+  randomised, kernel path against plain path on the same x, t and probe,
+  in f32 (TF32 off) and bf16, with the launches counted over it.  Returns
+  (report, per-evaluation launches of the bf16 kernel path, failures)."""
+  build, inputs = build or flagship, inputs or model_inputs
   out, failures, per_eval = {}, [], None
   want = {'conv3x3': per_forward['conv3x3'],
           'conv3x3_jvp': per_forward['conv3x3'], 'conv3x3_data_grad': 0,
@@ -4141,9 +4200,9 @@ def drift_div_phase(per_forward, seed):
           'groupnorm_act_jvp': per_forward['groupnorm_act']}
   for dtype in (torch.float32, torch.bfloat16):
     name = str(dtype).split('.')[-1]
-    config, kernel_model = flagship(dtype, True, seed)
-    _, plain_model = flagship(dtype, False, seed)
-    x, _ = model_inputs(config, seed)
+    config, kernel_model = build(dtype, True, seed)
+    _, plain_model = build(dtype, False, seed)
+    x, _ = inputs(config, seed)
     eps = rademacher(x.shape, seed + 1)
     t = torch.full((BATCH,), 0.5, device='cuda')
     results = {}
@@ -4436,6 +4495,567 @@ def forward_phase(seed, build=None, inputs=None, dtypes=None, batch=BATCH,
       failures.append(f'forward {name}: rel {rel:.3e}, finite {finite}')
     del kernel_model, plain_model
   return out, failures
+
+
+# ---------------------------------------------------------------------------
+# Phase 17: the reference's checkpoints imported, tpu.remat, NCSN++ bits/dim
+# ---------------------------------------------------------------------------
+
+IMPORT_TOL = 1e-4
+IMPORT_SAMPLE_STEPS = 20
+IMPORT_STEP = 25
+# PR 15's peak memory of run_lib.train at HIGHRES_CONFIG, batch 8, no remat.
+HIGHRES_PEAK_PR15 = 14.54 * 2 ** 30
+NCSNPP_EVAL_CKPT = 0
+
+
+def oracle_module(name):
+  """``tests/<name>.py`` of this checkout, loaded from its path (a
+  ``tests`` package installed elsewhere would shadow the directory)."""
+  path = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'tests',
+                      f'{name}.py')
+  spec = importlib.util.spec_from_file_location(f'_oracle_{name}', path)
+  module = importlib.util.module_from_spec(spec)
+  spec.loader.exec_module(module)
+  return module
+
+
+@torch.no_grad()
+def randomize_oracle_(oracle, seed):
+  """A reference-layout oracle's parameters redrawn: weights ~ N(0,
+  1/fan_in) (fan_in the elements of a weight over its output count),
+  GroupNorm weights ~ 1 + N(0, 0.1), biases ~ N(0, 0.1)."""
+  g = torch.Generator().manual_seed(seed)
+  for name, p in oracle.named_parameters():
+    v = torch.randn(p.shape, generator=g)
+    if p.ndim >= 2:
+      v /= (p.numel() // p.shape[0]) ** 0.5
+    elif 'GroupNorm' in name and name.endswith('weight'):
+      v = 1.0 + 0.1 * v
+    else:
+      v = 0.1 * v
+    p.copy_(v)
+
+
+def write_reference_ckpt(oracle, path, info, seed):
+  """The reference's ``checkpoint_N.pth`` payload of ``oracle``:
+  DataParallel's ``module.`` keys, a distinct EMA shadow list in
+  ``parameters()`` order, torch optimizer states, ``IMPORT_STEP``.
+  Returns the shadows."""
+  g = torch.Generator().manual_seed(seed)
+  shadows = [p.detach() + 0.01 * torch.randn(p.shape, generator=g)
+             for p in oracle.parameters()]
+  payload = {'info': info,
+             'model': {f'module.{k}': v
+                       for k, v in oracle.state_dict().items()},
+             'ema': {'decay': 0.9999, 'num_updates': IMPORT_STEP,
+                     'shadow_params': shadows},
+             'step': IMPORT_STEP}
+  optimizers = ('optimizer',) if info == 1 else ('optimizer_1',
+                                                 'optimizer_2')
+  for key in optimizers:
+    payload[key] = {'state': {}, 'param_groups': [{'lr': 2e-4}]}
+  torch.save(payload, path)
+  return shadows
+
+
+def import_cli(config_name, torch_ckpt, workdir):
+  """``python -m b_pinn_kalman_filter_tpu_torch.scripts.import_torch_checkpoint``
+  started as a subprocess (to be waited for)."""
+  root = os.path.dirname(os.path.abspath(__file__))
+  cmd = [sys.executable, '-m',
+         'b_pinn_kalman_filter_tpu_torch.scripts.import_torch_checkpoint',
+         '--config', os.path.join(root, 'b_pinn_kalman_filter_tpu_torch',
+                                  'configs', f'{config_name}.py'),
+         '--torch_ckpt', torch_ckpt, '--workdir', workdir]
+  return subprocess.Popen(cmd, cwd=root, stdout=subprocess.PIPE,
+                          stderr=subprocess.PIPE, text=True)
+
+
+def load_into_(model, params):
+  with torch.no_grad():
+    for name, p in model.named_parameters():
+      p.copy_(params[name])
+  return model
+
+
+def import_forward_errs(pairs):
+  """max |port - oracle| over max |oracle| of each (port NHWC, oracle
+  NCHW) pair, and whether every port output is finite."""
+  errs = [rel_err(got.permute(0, 3, 1, 2), want)[1] for got, want in pairs]
+  return errs, all(bool(torch.isfinite(g).all()) for g, _ in pairs)
+
+
+def import_phase(seed, per_forward, workdir):
+  """(a) The flagship and (b) the FlowNet-PINN in the reference's layout
+  (the torch oracles ``tests/torch_ddpm_oracle.py`` and
+  ``tests/torch_pinn_oracle.py`` at full width, every parameter
+  randomised, a distinct EMA), written as ``.pth`` files and imported by
+  the import tool, two subprocesses at once; the port's f32 forward on
+  the imported params and EMA against the oracle's on the card (K1 and K2,
+  K3 counted); ``sample_from_checkpoint`` from the imported flagship at N =
+  ``IMPORT_SAMPLE_STEPS``; ``train_bpinn`` from the imported PINN, its step
+  0 alone (lr 0: the MOPED bootstrap bit for bit).  Returns (report,
+  failures)."""
+  TorchDDPM = oracle_module('torch_ddpm_oracle').TorchDDPM
+  TorchPINN = oracle_module('torch_pinn_oracle').TorchPINN
+  report, failures = {}, []
+  config = configs.get_config(CONFIG)
+  m = config.model
+  oracle = TorchDDPM(
+      nf=m.nf, ch_mult=tuple(m.ch_mult), num_res_blocks=m.num_res_blocks,
+      attn_resolutions=tuple(m.attn_resolutions),
+      image_size=config.data.image_size, channels=config.data.num_channels,
+      resamp_with_conv=m.resamp_with_conv, dropout=m.dropout,
+      centered=config.data.centered, scale_by_sigma=m.scale_by_sigma,
+      sigmas=registry.get_sigmas(config))
+  randomize_oracle_(oracle, seed)
+  pinn_config = configs.get_config(PINN_CONFIG)
+  torch.manual_seed(seed)
+  pinn_oracle = TorchPINN(pinn_config)
+  paths = {k: os.path.join(workdir, f'{k}_checkpoint.pth')
+           for k in ('flagship', 'pinn')}
+  start = time.time()
+  shadows = {'flagship': write_reference_ckpt(oracle, paths['flagship'], 1,
+                                              seed + 1),
+             'pinn': write_reference_ckpt(pinn_oracle, paths['pinn'], 0,
+                                          seed + 2)}
+  write_s = time.time() - start
+  dirs = {k: os.path.join(workdir, f'{k}_imported') for k in paths}
+  start = time.time()
+  procs = {'flagship': import_cli(CONFIG, paths['flagship'],
+                                  dirs['flagship']),
+           'pinn': import_cli(PINN_CONFIG, paths['pinn'], dirs['pinn'])}
+  outs = {k: p.communicate(timeout=600) for k, p in procs.items()}
+  import_s = time.time() - start
+  snap = {k: IMPORT_STEP // max(1, c.training.snapshot_freq)
+          for k, c in (('flagship', config), ('pinn', pinn_config))}
+  numbered = {k: os.path.join(dirs[k], 'checkpoints', f'checkpoint_{n}')
+              for k, n in snap.items()}
+  report.update(write_reference_s=write_s, import_s=import_s,
+                returncodes={k: p.returncode for k, p in procs.items()},
+                checkpoint_mib={k: os.path.getsize(v) / 2 ** 20
+                                for k, v in paths.items()})
+  log(f'  wrote the reference .pth files in {write_s:.1f} s '
+      f'({report["checkpoint_mib"]} MiB); the import tool, two subprocesses '
+      f'at once: exit {report["returncodes"]} in {import_s:.1f} s')
+  for k, p in procs.items():
+    if p.returncode != 0 or not os.path.exists(numbered[k]) or (
+        not os.path.exists(os.path.join(dirs[k], 'checkpoints-meta',
+                                        'checkpoint'))):
+      # Nothing of (a) and (b) can run on.
+      raise RuntimeError(f'import {k}: exit {p.returncode}, '
+                         f'{outs[k][1][-2000:]}')
+
+  # (a) The flagship's f32 kernel-path forward on the imported params and
+  # EMA against the oracle's.
+  saved = torch.load(numbered['flagship'], map_location='cuda',
+                     weights_only=True)
+  _, model = flagship(torch.float32, True, seed)
+  oracle = oracle.cuda().eval()
+  x, labels = model_inputs(config, seed)
+  x = x.clamp(-1, 1)
+  x_nchw = x.permute(0, 3, 1, 2).contiguous()
+  rows = {}
+  with torch.inference_mode():
+    for which in ('params', 'ema_params'):
+      if which == 'ema_params':
+        for p, s in zip(oracle.parameters(), shadows['flagship']):
+          p.copy_(s)
+      load_into_(model, saved[which])
+      reset_counts()
+      got = model(x, labels, train=False)
+      torch.cuda.synchronize()
+      counts = dict(conv3x3=k1.conv3x3.launches,
+                    groupnorm_act=k2.groupnorm_act.launches)
+      with torch.device('cuda'):      # the oracle's own tables
+        want = oracle(x_nchw, labels)
+      (err,), finite = import_forward_errs([(got, want)])
+      rows[which] = dict(rel_err=err, finite=finite, launches=counts,
+                         max_abs_out=float(want.abs().max()))
+      log(f'  flagship {which} (f32, batch {BATCH}): port kernel path vs '
+          f'the reference-layout oracle rel {err:.3e} (limit {IMPORT_TOL}); '
+          f'launches {counts} (per forward {per_forward})')
+      if not (finite and err <= IMPORT_TOL):
+        failures.append(f'imported flagship {which}: rel {err:.3e}, '
+                        f'finite {finite}')
+      if counts != per_forward:
+        failures.append(f'imported flagship {which}: launches {counts}, '
+                        f'expected {per_forward}')
+  report['flagship'] = dict(rows, step=saved['step'],
+                            opt_count=saved['opt_state']['count'])
+  if saved['step'] != IMPORT_STEP or saved['opt_state']['count'] != 0:
+    failures.append(f'imported flagship: step {saved["step"]}, Adam count '
+                    f'{saved["opt_state"]["count"]}')
+  del model, oracle, saved
+  # sample_from_checkpoint from the imported checkpoint, bf16.
+  sample_config = configs.get_config(CONFIG)
+  sample_config.model.num_scales = IMPORT_SAMPLE_STEPS
+  reset_counts()
+  torch.cuda.synchronize()
+  start = time.time()
+  samples, nfe = run_lib.sample_from_checkpoint(
+      sample_config, numbered['flagship'], os.path.join(workdir, 'sample'),
+      device='cuda')
+  torch.cuda.synchronize()
+  sample_s = time.time() - start
+  counts = dict(conv3x3=k1.conv3x3.launches,
+                groupnorm_act=k2.groupnorm_act.launches)
+  want = {k: v * IMPORT_SAMPLE_STEPS for k, v in per_forward.items()}
+  finite = bool(torch.isfinite(samples).all())
+  png = os.path.exists(os.path.join(workdir, 'sample', 'sample.png'))
+  report['sample'] = dict(seconds=sample_s, nfe=nfe, launches=counts,
+                          expected_launches=want, finite=finite,
+                          shape=list(samples.shape), png=png)
+  log(f'  sample_from_checkpoint (the imported flagship, batch '
+      f'{samples.shape[0]}, N = {IMPORT_SAMPLE_STEPS}, bf16): '
+      f'{sample_s:.2f} s, nfe {nfe}, finite {finite}, sample.png {png}; '
+      f'launches {counts} (expected {want})')
+  if not (finite and png) or counts != want:
+    failures.append(f'sample from the imported flagship: {report["sample"]}')
+  del samples
+
+  # (b) The FlowNet-PINN's f32 forward on the imported params and EMA.
+  saved = torch.load(numbered['pinn'], map_location='cuda',
+                     weights_only=True)
+  model = PINN(pinn_config).cuda().eval()
+  pinn_oracle = pinn_oracle.cuda().eval()
+  (f1, f2, px, py, pt, _), _, _ = pinn_batch(pinn_config, seed)
+  pinn_rows = {}
+  with torch.inference_mode():
+    for which in ('params', 'ema_params'):
+      if which == 'ema_params':
+        for p, s in zip(pinn_oracle.parameters(), shadows['pinn']):
+          p.copy_(s)
+      load_into_(model, saved[which])
+      reset_counts()
+      flows, pres = model(f1, f2, px, py, pt)
+      torch.cuda.synchronize()
+      k3_count = k3.correlation.launches
+      with torch.device('cuda'):
+        want_flows, want_pres = pinn_oracle(
+            *(a.permute(0, 3, 1, 2).contiguous()
+              for a in (f1, f2, px, py)), pt)
+      errs, finite = import_forward_errs(
+          list(zip(flows, want_flows)) + [(pres, want_pres)])
+      pinn_rows[which] = dict(rel_errs=errs, finite=finite,
+                              k3_launches=k3_count)
+      log(f'  FlowNet-PINN {which} (f32, batch {f1.shape[0]}): port vs '
+          f'the reference-layout oracle, flows and pressure rel '
+          + ', '.join(f'{e:.2e}' for e in errs)
+          + f' (limit {IMPORT_TOL}); K3 launches {k3_count}')
+      if not (finite and max(errs) <= IMPORT_TOL):
+        failures.append(f'imported PINN {which}: rel {errs}, finite '
+                        f'{finite}')
+      if k3_count != k3_levels(pinn_config):
+        failures.append(f'imported PINN {which}: {k3_count} K3 launches, '
+                        f'expected {k3_levels(pinn_config)}')
+  ema = saved['ema_params']
+  del model, pinn_oracle, saved
+  # The B-PINN bootstrap from the imported PINN: train_bpinn's step 0
+  # alone (lr 0), so mu is the imported EMA, rho inv_softplus(delta |w|).
+  boot_config = configs.get_config(PINN_CONFIG)
+  boot_config.training.n_bpinn_iters = 0
+  boot_config.training.log_freq = boot_config.training.eval_freq = 1000
+  start = time.time()
+  boot = pinn_lib.train_bpinn(boot_config, os.path.join(workdir, 'boot'),
+                              numbered['pinn'], device='cuda')
+  boot_s = time.time() - start
+  delta = boot_config.model.bpinn_moped_delta
+  mu, rho = _pinn_parts(boot.params, 'mu'), _pinn_parts(boot.params, 'rho')
+  mu_exact = mu.keys() == ema.keys() and all(
+      torch.equal(mu[n], w) for n, w in ema.items())
+  rho_exact = all(torch.equal(rho[n], bayes.inv_softplus(delta * w.abs()))
+                  for n, w in ema.items())
+  report['pinn'] = dict(pinn_rows, bootstrap_s=boot_s,
+                        bootstrap_mu_exact=mu_exact,
+                        bootstrap_rho_exact=rho_exact)
+  log(f'  train_bpinn from the imported PINN, step 0 alone: {boot_s:.1f} s; '
+      f'mu the imported EMA bit for bit {mu_exact}, rho {rho_exact}')
+  if not (mu_exact and rho_exact):
+    failures.append(f'B-PINN bootstrap from the imported PINN: mu '
+                    f'{mu_exact}, rho {rho_exact}')
+  del boot
+  torch.cuda.empty_cache()
+  return report, failures
+
+
+def resblock_sites(model):
+  """K1 and K2 sites inside the model's resblocks (those ``tpu.remat``
+  recomputes)."""
+  out = {'conv3x3': 0, 'groupnorm_act': 0}
+  for block in model.modules():
+    if not type(block).__name__.startswith('ResnetBlock'):
+      continue
+    for m in block.modules():
+      if isinstance(m, layers.Conv3x3) and m.kernels and k1.applicable(
+          m.Conv_0.kernel.shape[:3], m.Conv_0.kernel.shape):
+        out['conv3x3'] += 1
+      elif (isinstance(m, layers.GroupNorm) and m.kernels
+            and m.act in layers.FUSABLE_ACTS):
+        out['groupnorm_act'] += 1
+  return out
+
+
+def remat_step(name, remat, seed):
+  """One bf16 train step's loss and gradients at ``name``'s full width and
+  train batch, with ``tpu.remat`` ``remat``, under a train state's own
+  copy of the randomised parameters (the dropout from a seeded
+  generator), after a warm one: (loss, {name: gradient}, peak memory
+  above the start, the start, step seconds, launches, resblock sites)."""
+  config, model = randomized_model(name, torch.bfloat16, True, seed,
+                                   remat=remat)
+  sde, _ = sde_lib.get_sde(config)
+  batch_size, size = config.training.batch_size, config.data.image_size
+  g = torch.Generator(device='cuda').manual_seed(seed)
+  batch = torch.rand((batch_size, size, size, config.data.num_channels),
+                     generator=g, device='cuda') * 2 - 1
+  t = torch.rand((batch_size,), generator=g, device='cuda') * (
+      sde.T - 1e-5) + 1e-5
+  z = torch.randn(batch.shape, generator=g, device='cuda')
+  params = {k: v.detach().clone().requires_grad_()
+            for k, v in model.named_parameters()}
+  loss_fn = losses.get_sde_loss_fn(
+      sde, model, True, reduce_mean=config.training.reduce_mean,
+      likelihood_weighting=False)
+
+  def step():
+    dropout = torch.Generator(device='cuda').manual_seed(seed + 1)
+    loss = loss_fn(params, batch, dropout, noise=(t, z))
+    grads = torch.autograd.grad(loss, list(params.values()),
+                                allow_unused=True, materialize_grads=True)
+    return loss.detach(), grads
+
+  step()
+  torch.cuda.synchronize()
+  torch.cuda.empty_cache()
+  reset_counts()
+  torch.cuda.reset_peak_memory_stats()
+  base = torch.cuda.memory_allocated()
+  start = time.time()
+  loss, grads = step()
+  torch.cuda.synchronize()
+  seconds = time.time() - start
+  peak = torch.cuda.max_memory_allocated() - base
+  launches = dict(k1.conv3x3.launches_by_use,
+                  groupnorm_act=k2.groupnorm_act.launches)
+  sites = resblock_sites(model)
+  del model
+  return (loss, dict(zip(params, grads)), peak, base, seconds, launches,
+          sites)
+
+
+def remat_phase(seed, highres_per_forward, highres_peak):
+  """(c) ``tpu.remat``: one bf16 train step of the flagship and of
+  ``NCSNPP_CONFIG`` at batch 128 with remat off and on (the loss, the
+  gradients as a tree within the bf16 limit of the largest leaf, peak
+  memory, step seconds, launches); ``run_lib.train`` at
+  ``HIGHRES_CONFIG``, batch 8, remat on, for steps 0..1, its peak memory
+  beside phase 15's run without remat and PR 15's 14.54 GiB.  Returns
+  (report, failures)."""
+  report, failures = {}, []
+  for name in (CONFIG, NCSNPP_CONFIG):
+    runs = {remat: remat_step(name, remat, seed) for remat in (False, True)}
+    (loss, grads, peak, base, secs, counts, sites), (
+        r_loss, r_grads, r_peak, _, r_secs, r_counts, _) = (runs[False],
+                                                            runs[True])
+    top = max(float(v.abs().max()) for v in grads.values())
+    tree = max(float((r_grads[n].float() - grads[n].float()).abs().max())
+               for n in grads) / top
+    finite = all(bool(torch.isfinite(v).all()) for v in r_grads.values())
+    loss_equal = bool(torch.equal(loss, r_loss))
+    loss_rel = float((r_loss - loss).abs() / loss.abs())
+    extra = {'forward': r_counts['forward'] - counts['forward'],
+             'groupnorm_act': r_counts['groupnorm_act']
+             - counts['groupnorm_act']}
+    report[name] = dict(
+        loss=float(loss), remat_loss=float(r_loss), loss_equal=loss_equal,
+        grad_tree_rel=tree, tol=TOL[torch.bfloat16],
+        peak_above_start=peak, remat_peak_above_start=r_peak,
+        start_allocated=base, step_s=secs, remat_step_s=r_secs,
+        launches=counts, remat_launches=r_counts, resblock_sites=sites,
+        remat_extra=extra)
+    log(f'  {name} train step (bf16, batch 128): loss {float(loss):.6f}, '
+        f'with remat {float(r_loss):.6f} (equal {loss_equal}); gradients '
+        f'with remat vs without, relative to the largest leaf {tree:.2e} '
+        f'(limit {TOL[torch.bfloat16]}); peak above the start {peak / 2**30:.2f} '
+        f'GiB, with remat {r_peak / 2**30:.2f} GiB (start {base / 2**30:.2f} '
+        f'GiB); step {secs:.4f} s, with remat {r_secs:.4f} s; launches '
+        f'{counts}, with remat {r_counts} (the resblocks hold {sites} '
+        f'sites)')
+    if not (finite and loss_rel <= TOL[torch.bfloat16]
+            and tree <= TOL[torch.bfloat16]):
+      failures.append(f'remat {name}: loss rel {loss_rel:.3e}, tree '
+                      f'{tree:.3e}, finite {finite}')
+    if (r_counts['data_grad'] != counts['data_grad'] or r_counts['jvp']
+        or not 0 < extra['forward'] <= sites['conv3x3']
+        or not 0 < extra['groupnorm_act'] <= sites['groupnorm_act']):
+      failures.append(f'remat {name}: launches {r_counts} against {counts} '
+                      f'(resblock sites {sites})')
+    if not r_peak < peak:
+      failures.append(f'remat {name}: peak {r_peak} not below {peak}')
+    del runs, grads, r_grads
+    torch.cuda.empty_cache()
+  _, model = randomized_model(HIGHRES_CONFIG, torch.bfloat16, True, seed,
+                              remat=True)
+  sites = resblock_sites(model)
+  del model
+  report['highres'], f = nc_train_phase(
+      1, highres_per_forward, seed, HIGHRES_CONFIG, HIGHRES_BATCH,
+      edit=lambda c: setattr(c.tpu, 'remat', True), remat_sites=sites)
+  failures += f
+  peak = report['highres']['max_memory_allocated']
+  report['highres'].update(no_remat_peak=highres_peak,
+                           pr15_peak=HIGHRES_PEAK_PR15)
+  log(f'  {HIGHRES_CONFIG} run_lib.train with remat, batch '
+      f'{HIGHRES_BATCH}: peak {peak / 2**30:.2f} GiB; without remat '
+      f'{highres_peak / 2**30:.2f} GiB in phase 15 of this run, '
+      f'{HIGHRES_PEAK_PR15 / 2**30:.2f} GiB in PR 15')
+  if not peak < highres_peak:
+    failures.append(f'{HIGHRES_CONFIG} remat peak {peak} not below '
+                    f'{highres_peak}')
+  torch.cuda.empty_cache()
+  return report, failures
+
+
+def ncsnpp_eval_config():
+  """``NCSNPP_CONFIG`` for ``run_lib.evaluate`` on phase 15's snapshot:
+  ``eval.batch_size`` ``EVAL_BATCH``, ``bpd_dataset`` 'train', the loss
+  and bits/dim (no sampling: phase 15 runs the PC sampler)."""
+  config = configs.get_config(NCSNPP_CONFIG)
+  ev = config.eval
+  ev.begin_ckpt = ev.end_ckpt = NCSNPP_EVAL_CKPT
+  ev.batch_size = EVAL_BATCH
+  ev.enable_loss = ev.enable_bpd = True
+  ev.enable_sampling = False
+  ev.bpd_dataset = 'train'
+  return config
+
+
+def ncsnpp_bpd_phase(train_dir, per_forward, seed):
+  """(d) NCSN++ bits/dim: one drift-plus-divergence evaluation, every
+  parameter randomised, kernel path against plain path in f32 and bf16
+  (batch 8) with its launches; ``run_lib.evaluate`` on phase 15's
+  snapshot (bf16; the loss and bpd), the launch counts set to 0 before
+  and read after; one bpd evaluation at ``EVAL_BATCH`` under the
+  profiler; 8 images' f32 bpd kernel path against plain path.  Returns
+  (report, failures)."""
+  report, failures = {}, []
+  report['drift_div'], per_eval, f = drift_div_phase(
+      per_forward, seed, build=ncsnpp_model, inputs=ncsnpp_inputs)
+  failures += f
+  config = ncsnpp_eval_config()
+  history = []
+  reset_counts()
+  torch.cuda.synchronize()
+  start = time.time()
+  results = run_lib.evaluate(config, train_dir, 'eval', device='cuda',
+                             history=history)
+  torch.cuda.synchronize()
+  total_s = time.time() - start
+  counts = eval_counts()
+  bpd_runs = [h for h in history if h['kind'] == 'bpd']
+  nfe = sum(h['nfe'] for h in bpd_runs)
+  loss_batches = 512 // EVAL_BATCH
+  forwards = nfe + loss_batches
+  want = {'conv3x3': per_forward['conv3x3'] * forwards,
+          'conv3x3_jvp': per_forward['conv3x3'] * nfe,
+          'conv3x3_data_grad': 0,
+          'groupnorm_act': per_forward['groupnorm_act'] * forwards,
+          'groupnorm_act_jvp': per_forward['groupnorm_act'] * nfe}
+  ck = NCSNPP_EVAL_CKPT
+  metrics = {k: results.get(f'ckpt_{ck}_{k}') for k in ('loss', 'bpd')}
+  report.update(seconds=total_s, results=results, launches=counts,
+                expected_launches=want, per_evaluation=per_eval,
+                bpd_batches=[dict(nfe=h['nfe'], seconds=h['seconds'],
+                                  ms_an_evaluation=1e3 * h['seconds']
+                                  / h['nfe']) for h in bpd_runs])
+  log(f'  evaluate ({NCSNPP_CONFIG}, checkpoint_{ck} of phase 15, bf16): '
+      f'{total_s:.1f} s; loss {metrics["loss"]}, bpd {metrics["bpd"]}')
+  log(f'  bpd batches (batch {EVAL_BATCH}): ' + ', '.join(
+      f'nfe {h["nfe"]} in {h["seconds"]:.2f} s ('
+      f'{1e3 * h["seconds"] / h["nfe"]:.1f} ms an evaluation)'
+      for h in bpd_runs) + f'; launches {counts} (expected {want})')
+  if not all(v is not None and np.isfinite(v) for v in metrics.values()):
+    failures.append(f'NCSN++ evaluate: results {results}')
+  if counts != want or len(bpd_runs) != loss_batches:
+    failures.append(f'NCSN++ evaluate: launches {counts}, expected {want}, '
+                    f'{len(bpd_runs)} bpd batches')
+
+  template, model = run_lib._template(config, torch.device('cuda'), seed)
+  state = ckpt_lib.restore_checkpoint(
+      os.path.join(train_dir, 'checkpoints', f'checkpoint_{ck}'), template)
+  _, eval_ds = get_dataset(config, evaluation=True)
+  batch = torch.from_numpy(get_data_scaler(config)(
+      next(iter(eval_ds))[0])).cuda()
+  fn = drift_div_fn_of(config, model, state.ema_params)
+  eps = rademacher(batch.shape, seed)
+  t = torch.full((EVAL_BATCH,), 0.5, device='cuda')
+  with torch.no_grad():
+    fn(batch, t, eps)
+    report['profile'], _ = profiled(
+        f'NCSN++ bpd evaluation (drift + divergence, batch {EVAL_BATCH}, '
+        'bf16)', lambda: fn(batch, t, eps))
+  del model, template
+
+  bpds = {}
+  for kernels in (True, False):
+    f32 = ncsnpp_eval_config()
+    f32.tpu.compute_dtype = 'float32'
+    model = registry.create_model(f32, device='cuda', seed=seed,
+                                  kernels=kernels)
+    fn = likelihood.get_likelihood_fn(
+        sde_lib.get_sde(f32)[0], model, get_data_inverse_scaler(f32),
+        rtol=BPD_F32_ODE_TOL, atol=BPD_F32_ODE_TOL)
+    start = time.time()
+    bpd, _, nfe = fn(state.ema_params, batch[:8],
+                     torch.Generator(device='cuda').manual_seed(seed))
+    torch.cuda.synchronize()
+    bpds[kernels] = (bpd, nfe, time.time() - start)
+    del model
+  rel = float(((bpds[True][0] - bpds[False][0]).abs()
+               / bpds[False][0].abs()).max())
+  report['f32_bpd'] = dict(kernel=bpds[True][0].tolist(),
+                           plain=bpds[False][0].tolist(),
+                           kernel_nfe=bpds[True][1], plain_nfe=bpds[False][1],
+                           kernel_s=bpds[True][2], plain_s=bpds[False][2],
+                           max_rel=rel, tol=BPD_F32_TOL)
+  log(f'  NCSN++ bpd of 8 images in f32 (rtol = atol = {BPD_F32_ODE_TOL}): '
+      f'kernel path nfe {bpds[True][1]} ({bpds[True][2]:.1f} s), plain path '
+      f'nfe {bpds[False][1]} ({bpds[False][2]:.1f} s); max rel difference '
+      f'{rel:.3e} (limit {BPD_F32_TOL})')
+  if not (rel <= BPD_F32_TOL and bool(torch.isfinite(bpds[True][0]).all())):
+    failures.append(f'NCSN++ f32 bpd kernel vs plain: {report["f32_bpd"]}')
+  torch.cuda.empty_cache()
+  return report, failures
+
+
+def checkpoint_phase(args, per_forward, ncsnpp_per_forward, highres,
+                     ncsnpp_train_dir):
+  """Phase 17: (a)+(b) the reference's checkpoints imported, (c)
+  ``tpu.remat``, (d) NCSN++ bits/dim.  Returns (report, failures)."""
+  report, failures = {}, []
+  log('[import (a), (b): the flagship and the FlowNet-PINN in the '
+      'reference\'s .pth layout (torch oracles, full width, randomised), '
+      'imported by the import tool; port vs oracle forward in f32; '
+      f'sample_from_checkpoint at N = {IMPORT_SAMPLE_STEPS}; the B-PINN '
+      'bootstrap]')
+  with tempfile.TemporaryDirectory(prefix='chip_smoke_import_') as tmp:
+    report['import'], f = import_phase(args.seed, per_forward, tmp)
+  failures += f
+  log(f'[remat (c): one bf16 train step, batch 128, of {CONFIG} and '
+      f'{NCSNPP_CONFIG} with tpu.remat off and on; {HIGHRES_CONFIG} '
+      f'run_lib.train with remat, batch {HIGHRES_BATCH}]')
+  report['remat'], f = remat_phase(args.seed, highres['per_forward'],
+                                   highres['peak'])
+  failures += f
+  log(f'[NCSN++ bits/dim (d): drift + divergence kernel vs plain, '
+      f'run_lib.evaluate on phase 15\'s snapshot (batch {EVAL_BATCH}), a '
+      'profiled evaluation, f32 bpd kernel vs plain]')
+  report['ncsnpp_bpd'], f = ncsnpp_bpd_phase(ncsnpp_train_dir,
+                                             ncsnpp_per_forward, args.seed)
+  failures += f
+  return report, failures
 
 
 def main():
@@ -4787,7 +5407,10 @@ def main():
   failures += f28
   train_tmp.cleanup()
 
-  report['ncsnpp'], f29 = ncsnpp_phase(args, (conv_sites, norm_sites))
+  # NCSN++'s train run's directory: phase 17 evaluates its snapshot.
+  ncsnpp_tmp = tempfile.TemporaryDirectory(prefix='chip_smoke_ncsnpp_')
+  report['ncsnpp'], f29 = ncsnpp_phase(args, (conv_sites, norm_sites),
+                                       ncsnpp_tmp.name)
   failures += f29
   pp_rows = report['ncsnpp']['kernels']
   report['ncsn'], f30 = ncsn_phase(
@@ -4796,6 +5419,14 @@ def main():
       set(norm_sites) | {tuple(r['shape'])
                          for r in pp_rows['groupnorm_act']})
   failures += f30
+  pp_kernels = report['ncsnpp']['kernels']
+  report['checkpoints'], f31 = checkpoint_phase(
+      args, per_forward, pp_kernels['ncsnpp_per_forward'],
+      dict(per_forward=pp_kernels['highres_per_forward'],
+           peak=report['ncsnpp']['highres_train']['max_memory_allocated']),
+      ncsnpp_tmp.name)
+  failures += f31
+  ncsnpp_tmp.cleanup()
   eval_launches = report['eval']['launches']
   dps_launches = report['inverse']['dps_dpm']['launches']
 
@@ -4938,13 +5569,49 @@ def main():
     per = nc_train['per_step']['conv3x3' if use else 'groupnorm_act']
     return dict(nc_train_step_launches=per, nc_train_launches=launches)
 
+  ck = report['checkpoints']
+
+  def remat_keys(kind):
+    """A kernel's launches a bf16 train step (batch 128) of the flagship
+    and of ``NCSNPP_CONFIG`` with ``tpu.remat`` and without, and over
+    ``HIGHRES_CONFIG``'s two steps with it (``kind`` 'forward' and
+    'data_grad' for K1, 'groupnorm_act' for K2)."""
+    out = {}
+    for name, key in ((CONFIG, 'flagship'), (NCSNPP_CONFIG, 'ncsnpp')):
+      run = ck['remat'][name]
+      out[f'remat_{key}_step_launches'] = run['remat_launches'][kind]
+      out[f'no_remat_{key}_step_launches'] = run['launches'][kind]
+    hr_run = ck['remat']['highres']['launches']
+    out['remat_highres_train_launches'] = (
+        hr_run['groupnorm_act'] if kind == 'groupnorm_act'
+        else hr_run['conv3x3'][kind])
+    return out
+
+  def import_keys(kind):
+    """A kernel's launches in the f32 forward of the imported flagship
+    and in ``sample_from_checkpoint`` from it."""
+    imp = ck['import']
+    return dict(
+        import_forward_launches=imp['flagship']['params']['launches'][kind],
+        import_sample_launches=imp['sample']['launches'][kind])
+
+  pp_bpd = ck['ncsnpp_bpd']
+
+  def ncsnpp_bpd_keys(kind):
+    """K1 JVP's or K2 JVP's launches at ``NCSNPP_CONFIG``: over its
+    ``evaluate`` run and an evaluation (bf16)."""
+    return dict(ncsnpp_evaluate_launches=pp_bpd['launches'][kind],
+                ncsnpp_bpd_eval_launches=(pp_bpd['per_evaluation']
+                                          or {}).get(kind))
+
   reread_row = reread_f32[0] if reread_f32 else {}
   table = {'kernels': [
       dict(entry('conv3x3', 'conv3x3_wgmma.cu', 'winograd_pallas.py:159',
                  by_kernel['wgmma'], conv_all),
            **dps_keys(nc_conv_total, 'conv3x3'),
            dps_eval_64x64=k1_nc64, **nc_keys('forward'),
-           **ncsnpp_keys('forward'), **ddpm_highres_keys('forward')),
+           **ncsnpp_keys('forward'), **ddpm_highres_keys('forward'),
+           **remat_keys('forward'), **import_keys('conv3x3')),
       entry('conv3x3_direct', 'conv3x3.cu', 'winograd_pallas.py:159',
             by_kernel['direct'], conv_all, yardstick=True),
       dict(entry('conv3x3_data_grad', 'conv3x3_wgmma.cu',
@@ -4953,7 +5620,7 @@ def main():
                  dgrad_total),
            **dps_keys(nc_dgrad_total, 'conv3x3_data_grad'),
            **nc_keys('data_grad'), **ncsnpp_keys('data_grad'),
-           **ddpm_highres_keys('data_grad')),
+           **ddpm_highres_keys('data_grad'), **remat_keys('data_grad')),
       dict(entry('groupnorm_act', 'groupnorm.cu', 'groupnorm_pallas.py:118',
                  launches['groupnorm_act'], norm_all),
            **dps_keys(nc_norm_total, 'groupnorm_act'),
@@ -4961,16 +5628,19 @@ def main():
                'ms', 'plain_ms', 'library_ms', 'bound_ms', 'bound_by',
                'rel_err')}, **nc_keys(None),
            **ncsnpp_keys('groupnorm_act'),
-           **ddpm_highres_keys('groupnorm_act')),
+           **ddpm_highres_keys('groupnorm_act'),
+           **remat_keys('groupnorm_act'), **import_keys('groupnorm_act')),
       dict(entry('conv3x3_jvp', 'conv3x3_wgmma.cu', 'winograd_pallas.py:159',
                  eval_launches['conv3x3_jvp'],
                  dict(jvp_conv_total, **jvp_conv_more)),
-           bpd_eval_launches=(per_eval_bpd or {}).get('conv3x3_jvp')),
+           bpd_eval_launches=(per_eval_bpd or {}).get('conv3x3_jvp'),
+           **ncsnpp_bpd_keys('conv3x3_jvp')),
       dict(entry('groupnorm_act_jvp', 'groupnorm_jvp.cu',
                  'groupnorm_pallas.py:118',
                  eval_launches['groupnorm_act_jvp'],
                  dict(jvp_norm_total, **jvp_norm_more)),
            bpd_eval_launches=(per_eval_bpd or {}).get('groupnorm_act_jvp'),
+           **ncsnpp_bpd_keys('groupnorm_act_jvp'),
            **{f'b{EVAL_BATCH}_{k}': v for k, v in dict(
                jvp_b256_total, prev_ms=jvp_b256_more['prev_ms']).items()}),
       dict(entry('groupnorm_act_jvp_cluster', 'groupnorm_jvp_cluster.cu',
@@ -4989,7 +5659,9 @@ def main():
            bpinn_step_launches=bpinn_step['correlation'],
            bpinn_step_device_ms=bpinn_train['k3_device_ms'],
            bpinn_step_bound_ms=k3_step_bound,
-           **lfn_keys(('correlation',), 'k3')),
+           **lfn_keys(('correlation',), 'k3'),
+           import_forward_launches=ck['import']['pinn']['params'][
+               'k3_launches']),
       dict(entry('correlation_bwd', 'correlation_bwd.cu',
                  'correlation_pallas.py:42',
                  prelim_launches['correlation_df1']
@@ -5065,7 +5737,14 @@ def main():
       f'ddpm_highres_* keys: K1, K1 data gradient and K2 on '
       f'{DDPM_HIGHRES_CONFIG} (batch {DDPM_HIGHRES_BATCH}, bf16), launches '
       f'a forward and train step and over its run, device ms of the site '
-      f'shapes no earlier row times; the NCSN models launch none')
+      f'shapes no earlier row times; the NCSN models launch none; '
+      f'remat_* keys: K1, K1 data gradient and K2 launches a bf16 train '
+      f'step (batch 128) with and without tpu.remat and over the church '
+      f'config\'s two steps with it; import_* keys: launches in the '
+      f'imported flagship\'s f32 forward and sample_from_checkpoint (K3: '
+      f'the imported FlowNet-PINN\'s forward); ncsnpp_bpd_* and '
+      f'ncsnpp_evaluate_* keys: K1 JVP and K2 JVP launches an NCSN++ bpd '
+      f'evaluation and over its evaluate run')
   if failures:
     for failure in failures:
       print(f'FAILED: {failure}', file=sys.stderr)

@@ -468,3 +468,61 @@ def check_three_train_steps(side, case):
   _, p_eval = eval_fn(state, torch.from_numpy(batch), noise=noise)
   assert _rel(p_eval.numpy(), j_eval) <= LOSS_TOL
   assert state.step == 3
+
+
+def remat_runs(config, seed=0, batch=2):
+  """One train-mode DSM loss of ``config``'s model (dropout 0.1, the t,
+  z and masks from one seeded generator) and its gradients under a train
+  state's params, as ``core/losses.py`` ``get_step_fn`` takes them, with
+  ``tpu.remat`` off and on: ``{remat: (loss, {name: gradient},
+  state_dict keys, the generator's state after the backward, the
+  resblocks' forwards in the forward pass and in all)}``."""
+  from b_pinn_kalman_filter_tpu_torch.core import losses
+  from b_pinn_kalman_filter_tpu_torch.core import sde as sde_lib
+  from b_pinn_kalman_filter_tpu_torch.models import registry
+  config.model.dropout = 0.1
+  size, ch = config.data.image_size, config.data.num_channels
+  x = torch.from_numpy(np.random.default_rng(seed).uniform(
+      -1, 1, (batch, size, size, ch)).astype(np.float32))
+  out = {}
+  for remat in (False, True):
+    config.tpu.remat = remat
+    model = registry.create_model(config, device='cpu', seed=seed)
+    sde = sde_lib.get_sde(config)[0]
+    loss_fn = losses.get_sde_loss_fn(sde, model, train=True,
+                                     reduce_mean=True, continuous=True,
+                                     likelihood_weighting=False)
+    params = {k: v.detach().clone().requires_grad_()
+              for k, v in model.named_parameters()}
+    calls = []
+    for m in model.modules():
+      if type(m).__name__.startswith('ResnetBlock'):
+        m.register_forward_pre_hook(lambda *_: calls.append(1))
+    generator = torch.Generator().manual_seed(seed)
+    loss = loss_fn(params, x, generator)
+    forwards = len(calls)
+    grads = torch.autograd.grad(loss, list(params.values()),
+                                allow_unused=True, materialize_grads=True)
+    out[remat] = (loss.detach(), dict(zip(params, grads)),
+                  list(model.state_dict()), generator.get_state(),
+                  (forwards, len(calls)))
+  return out
+
+
+def check_remat(config, seed=0):
+  """``remat_runs``: the loss and every gradient leaf bit for bit, the
+  same state_dict keys, the generator in the same state, and each
+  resblock recomputed once in the backward with remat; returns the
+  runs."""
+  runs = remat_runs(config, seed)
+  (loss, grads, keys, gen, calls), (r_loss, r_grads, r_keys, r_gen,
+                                    r_calls) = runs[False], runs[True]
+  # Each resblock runs once more, in the backward, with remat alone.
+  assert calls == (calls[0], calls[0]) and r_calls == (calls[0],
+                                                       2 * calls[0])
+  assert torch.equal(loss, r_loss), (loss, r_loss)
+  assert keys == r_keys and list(grads) == list(r_grads)
+  for name, g in grads.items():
+    assert torch.equal(g, r_grads[name]), name
+  assert torch.equal(gen, r_gen)
+  return runs

@@ -7,7 +7,7 @@ config's dataset stand-in, SDE and loss; ``pinn/pinn_nc`` a PINN prelim
 step, with ``pinn/pinn_pde``'s ``data.dt`` and ``inverse`` block, which
 it lacks in both packages).  Also: ``ve/ncsn/*`` leave ``model.num_classes`` unset, and the
 ``ncsn`` model raises on them in both packages; the NCSNv2 variant by
-image size; the DDPM's refusal of ``tpu.remat``; and ``run_lib.train``
+image size; ``tpu.remat`` at the DDPM; and ``run_lib.train``
 and an annealed-Langevin ``run_lib.sample`` request at a tiny
 ``ve/ncsnv2/cifar10``."""
 
@@ -19,7 +19,7 @@ import torch
 
 from b_pinn_kalman_filter_tpu_torch import configs
 from b_pinn_kalman_filter_tpu_torch.data import datasets
-from b_pinn_kalman_filter_tpu_torch.models import ddpm, ncsnv2, registry
+from b_pinn_kalman_filter_tpu_torch.models import ncsnv2, registry
 from b_pinn_kalman_filter_tpu_torch.pinn import losses as pinn_losses
 from b_pinn_kalman_filter_tpu_torch.pinn import pinn_lib
 from b_pinn_kalman_filter_tpu_torch.train import run_lib
@@ -197,10 +197,13 @@ def test_ncsnv2_variant_by_image_size():
 
 
 def test_ddpm_refuses_remat():
+  """``tpu.remat`` at the tiny DDPM, dropout 0.1 in training: the loss
+  and every gradient bit for bit as without it, the same names, the
+  generator left where it was, each resblock recomputed in the backward
+  (``port_parity.check_remat``)."""
   _, config = port_parity.tiny_configs()
-  config.tpu.remat = True
-  with pytest.raises(NotImplementedError, match='A.17'):
-    ddpm.DDPM(config)
+  runs = port_parity.check_remat(config)
+  assert runs[True][4][0] == 8     # 2 down, 2 middle, 2 x 2 up
 
 
 def test_train_and_ald_sample_at_the_tiny_ncsnv2(tmp_path, monkeypatch):

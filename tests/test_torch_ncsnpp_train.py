@@ -3,7 +3,8 @@ the tiny VE variant (``tests/port_parity.py`` ``TINY_NCSNPP``) with a
 snapshot, and a ``run_lib.sample`` request by the config's PC sampler
 (reverse diffusion and Langevin: 2 N evaluations); the forward of every
 NCSN++ config at 32x32 and a tiny width (the high-resolution pyramids on
-their own dataset stand-ins' shapes); ``tpu.remat`` refused."""
+their own dataset stand-ins' shapes); ``tpu.remat`` with both resblock
+types."""
 
 import os
 
@@ -80,8 +81,14 @@ def test_every_ncsnpp_config_builds_and_runs_its_forward(name):
   assert out.shape == x.shape and torch.isfinite(out).all()
 
 
-def test_remat_is_refused():
-  _, config = port_parity.tiny_ncsnpp_configs('ve')
-  config.tpu.remat = True
-  with pytest.raises(NotImplementedError, match='A.17'):
-    ncsnpp.NCSNpp(config)
+@pytest.mark.parametrize('variant', ['ve', 'ddpm'])
+def test_remat_is_refused(variant):
+  """``tpu.remat`` at the tiny NCSN++ with BigGAN ('ve') and DDPM++
+  ('ddpm') resblocks, dropout 0.1 in training: the loss and every
+  gradient bit for bit as without it, the same names, the generator left
+  where it was, each resblock recomputed in the backward
+  (``port_parity.check_remat``)."""
+  _, config = port_parity.tiny_ncsnpp_configs(variant)
+  runs = port_parity.check_remat(config)
+  blocks = {'ve': 'ResnetBlockBigGANpp', 'ddpm': 'ResnetBlockDDPMpp'}
+  assert any(k.startswith(blocks[variant]) for k in runs[True][2])
